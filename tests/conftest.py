@@ -30,6 +30,11 @@ from video_caption_tpu.models import gpt2 as g2  # noqa: E402
 from video_caption_tpu.models import vit as vt  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips where torch.cuda.is_available() is false)")
+
+
 @pytest.fixture(scope="session")
 def tiny_cfg() -> cm.CaptionModelConfig:
     """Small geometry for fast CPU tests; same structure as the real model."""

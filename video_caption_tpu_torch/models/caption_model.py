@@ -1,0 +1,119 @@
+"""Composite caption model: ViT encoder + optional projection + prefix norm +
+prefix mapper + GPT-2 (counterpart of video_caption_tpu/models/caption_model.py).
+
+The mapper product runs through the prefix-projector kernel
+(ops/prefix_projector.py) on the GPU. ``compute_loss`` (training) and the
+packed 4:2:0 video input are still to port.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict
+
+import torch
+
+from video_caption_tpu_torch.models import gpt2 as g2
+from video_caption_tpu_torch.models import vit as vt
+from video_caption_tpu_torch.ops.prefix_norm import apply_prefix_norm
+from video_caption_tpu_torch.ops.prefix_projector import prefix_project
+
+Params = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class CaptionModelConfig:
+    vit: vt.ViTConfig = field(default_factory=vt.ViTConfig)
+    gpt2: g2.GPT2Config = field(default_factory=g2.GPT2Config)
+    prefix_len: int = 4
+    video_dim: int = 256
+    proj_hidden: int = 0          # MLP adapter width (0 = identity)
+    ln_scale: float = 0.6
+    in_weight: float = 0.4
+
+    @property
+    def mapper_out(self) -> int:
+        return self.gpt2.n_embd * self.prefix_len
+
+
+def init_caption_model(seed: int, cfg: CaptionModelConfig, device) -> Params:
+    """Random parameters with the shapes and stddevs of the JAX
+    ``init_caption_model``, drawn from a torch.Generator on ``device`` seeded
+    with ``seed`` (the values differ from the JAX init's)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def nrm(*shape):
+        return torch.randn(shape, generator=gen, device=device) * 0.02
+
+    params: Params = {
+        "encoder": vt.init_vit_params(gen, cfg.vit, device),
+        "mapper": {"w": nrm(cfg.video_dim, cfg.mapper_out),
+                   "b": torch.zeros(cfg.mapper_out, device=device)},
+        "decoder": g2.init_gpt2_params(gen, cfg.gpt2, device),
+    }
+    if cfg.vit.out_dim != cfg.video_dim:
+        params["proj"] = {"w": nrm(cfg.vit.out_dim, cfg.video_dim),
+                          "b": torch.zeros(cfg.video_dim, device=device)}
+    if cfg.proj_hidden > 0:
+        params["proj_mlp"] = {
+            "fc1": {"w": nrm(cfg.video_dim, cfg.proj_hidden),
+                    "b": torch.zeros(cfg.proj_hidden, device=device)},
+            "fc2": {"w": nrm(cfg.proj_hidden, cfg.video_dim),
+                    "b": torch.zeros(cfg.video_dim, device=device)},
+        }
+    return params
+
+
+def _f32_linear(x: torch.Tensor, p: Params) -> torch.Tensor:
+    return x @ p["w"].float() + p["b"].float()
+
+
+def _adapt(params: Params, emb: torch.Tensor) -> torch.Tensor:
+    """The optional projection / MLP adapter after the encoder (f32)."""
+    if "proj" in params:
+        emb = _f32_linear(emb, params["proj"])
+    if "proj_mlp" in params:
+        m = params["proj_mlp"]
+        emb = _f32_linear(torch.relu(_f32_linear(emb, m["fc1"])), m["fc2"])
+    return emb
+
+
+def encode_video(params: Params, video: torch.Tensor, cfg: CaptionModelConfig) -> torch.Tensor:
+    """[B,T,3,H,W] (f32 or uint8) -> projected video embedding [B, video_dim] f32."""
+    if video.ndim != 5:
+        raise NotImplementedError("only [B,T,3,H,W] pixel input is ported "
+                                  "(the packed 4:2:0 wire is still to port)")
+    return _adapt(params, vt.vit_encode(params["encoder"], video, cfg.vit))
+
+
+def map_prefix(params: Params, emb: torch.Tensor, cfg: CaptionModelConfig) -> torch.Tensor:
+    """Normalized video embedding -> prefix token embeddings [B,P,H]."""
+    if emb.ndim == 3:
+        emb = emb[:, 0, :]
+    out = prefix_project(emb.contiguous(), params["mapper"]["w"], params["mapper"]["b"])
+    return out.reshape(emb.shape[0], cfg.prefix_len, cfg.gpt2.n_embd)
+
+
+def video_to_prefix(params: Params, video: torch.Tensor, cfg: CaptionModelConfig) -> torch.Tensor:
+    """encode -> proj -> prefix norm -> mapper -> [B,P,H] f32."""
+    emb = apply_prefix_norm(encode_video(params, video, cfg), cfg.ln_scale, cfg.in_weight)
+    return map_prefix(params, emb, cfg)
+
+
+def encode_frames(params: Params, frames: torch.Tensor, cfg: CaptionModelConfig) -> torch.Tensor:
+    """Per-frame half of the visual branch: [C,3,H,W] -> [C, embed_dim]."""
+    return vt.vit_encode_frames(params["encoder"], frames, cfg.vit)
+
+
+def frames_to_prefix(params: Params, per_frame: torch.Tensor,
+                     cfg: CaptionModelConfig) -> torch.Tensor:
+    """Finish the visual branch from per-frame features [B,T,embed_dim]:
+    ``frames_to_prefix(encode_frames(...)) == video_to_prefix(video)``."""
+    emb = _adapt(params, vt.vit_finish(params["encoder"], per_frame, cfg.vit))
+    return map_prefix(params, apply_prefix_norm(emb, cfg.ln_scale, cfg.in_weight), cfg)
+
+
+def build_decoder_inputs(params: Params, prefix: torch.Tensor, input_ids: torch.Tensor,
+                         cfg: CaptionModelConfig) -> torch.Tensor:
+    """concat(prefix_embeds, wte(input_ids))."""
+    tok = params["decoder"]["wte"][input_ids.long()]
+    return torch.cat([prefix.to(tok.dtype), tok], dim=1)

@@ -1,0 +1,224 @@
+"""GPT-2 decoder with a static-shape KV cache (counterpart of
+video_caption_tpu/models/gpt2.py).
+
+Parameters keep the JAX package's layout (blocks stacked along a leading
+layer axis, projections stored ``[in, out]`` as in HF GPT-2's Conv1D). Two
+cache layouts, as in the JAX package:
+
+- contiguous ``[L, B, max_len, 2, nh, hd]`` for greedy/sampled decode, read
+  by plain PyTorch attention (the decode_attention and decode_layer kernels
+  are off by default in the reference and not ported yet);
+- for beam search, a read-only prefill cache ``{k, v: [L, B, S0, H]}``
+  shared by a video's beams plus an append-only, time-major generated cache
+  ``[L, N, 2, R, H]`` read by the beam-attention kernel
+  (ops/beam_attention.py) through the ancestry index ``anc``.
+
+Unlike the JAX package, the caches are updated IN PLACE: a forward writes
+its new K/V rows into the buffer it was given and returns the same dict.
+The LM head of every decode step runs through the lm-head kernel
+(ops/lm_head.py), which also emits the selection statistics.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from video_caption_tpu_torch.models.vit import layer_norm, linear
+from video_caption_tpu_torch.ops.beam_attention import beam_attention
+from video_caption_tpu_torch.ops.lm_head import WINDOW, lm_head_stats
+
+Params = Dict[str, Any]
+Cache = Dict[str, torch.Tensor]
+_NEG = -1e30
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    """Geometry of HF ``gpt2`` base."""
+
+    vocab_size: int = 50257
+    max_position_embeddings: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    dtype: torch.dtype = torch.bfloat16
+    ln_eps: float = 1e-5
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+
+def init_gpt2_params(gen: torch.Generator, cfg: GPT2Config, device) -> Params:
+    """Random parameters with the shapes and stddevs of the JAX init."""
+    h, d, mlp = cfg.n_embd, cfg.n_layer, 4 * cfg.n_embd
+
+    def nrm(*shape):
+        return torch.randn(shape, generator=gen, device=device) * 0.02
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device)
+
+    return {
+        "wte": nrm(cfg.vocab_size, h),
+        "wpe": nrm(cfg.max_position_embeddings, h),
+        "blocks": {
+            "ln1_scale": ones(d, h), "ln1_bias": zeros(d, h),
+            "attn_w": nrm(d, h, 3 * h), "attn_b": zeros(d, 3 * h),
+            "proj_w": nrm(d, h, h), "proj_b": zeros(d, h),
+            "ln2_scale": ones(d, h), "ln2_bias": zeros(d, h),
+            "fc_w": nrm(d, h, mlp), "fc_b": zeros(d, mlp),
+            "out_w": nrm(d, mlp, h), "out_b": zeros(d, h),
+        },
+        "lnf_scale": ones(h),
+        "lnf_bias": zeros(h),
+    }
+
+
+def init_cache(cfg: GPT2Config, batch: int, max_len: int, device,
+               layout: str = "contiguous") -> Cache:
+    """Zeroed KV cache in the compute dtype: ``contiguous`` [L, B, max_len, 2,
+    nh, hd] (K at index 0, V at 1) or ``beam_gen`` [L, max_len(N), 2,
+    batch(R), H]."""
+    if layout == "beam_gen":
+        shape = (cfg.n_layer, max_len, 2, batch, cfg.n_embd)
+    elif layout == "contiguous":
+        shape = (cfg.n_layer, batch, max_len, 2, cfg.n_head, cfg.head_dim)
+    else:
+        raise ValueError(f"unknown cache layout {layout!r}")
+    return {"kv": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def lm_head_t(params: Params, cfg: GPT2Config) -> torch.Tensor:
+    """Transposed LM head [H, Vp] in the compute dtype, Vp = vocab rounded up
+    to a multiple of the 128-column selection window (the JAX package rounds
+    further to 1408 multiples for its TPU chunking; that does not carry
+    over). Pad columns are zero; the kernel masks their logits to -inf."""
+    v = cfg.vocab_size
+    vp = -(-v // WINDOW) * WINDOW
+    wte_t = params["wte"].to(cfg.dtype).t()
+    return F.pad(wte_t, (0, vp - v)) if vp != v else wte_t.contiguous()
+
+
+def lm_stats(x2: torch.Tensor, wte_t: torch.Tensor, cfg: GPT2Config,
+             need_row_stats: bool) -> Tuple:
+    """(logits [R,Vp] f32 with -inf pads, wmax [R,Vp/128], m [R] | None,
+    l [R] | None) — m/l (row max, row sum-exp) only with need_row_stats."""
+    logits, wmax, m, l = lm_head_stats(x2.to(cfg.dtype).contiguous(), wte_t, cfg.vocab_size)
+    if not need_row_stats:
+        m = l = None
+    return logits, wmax, m, l
+
+
+def _position_embeds(params: Params, positions: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """wpe rows of ``positions``, clamped into the table as JAX clamps an
+    out-of-range gather (a long prompt plus a long decode can pass the end
+    of a small position table)."""
+    wpe = params["wpe"]
+    return wpe[positions.clamp(0, wpe.shape[0] - 1)].to(dt)
+
+
+def _mlp(x: torch.Tensor, blk: Params, cfg: GPT2Config) -> torch.Tensor:
+    m = linear(layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], cfg.ln_eps),
+               blk["fc_w"], blk["fc_b"])
+    m = F.gelu(m.float(), approximate="tanh").to(x.dtype)
+    return linear(m, blk["out_w"], blk["out_b"])
+
+
+def _attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            offset: int, valid_mask: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:
+    """Attention of S new tokens at positions [offset, offset+S) against the
+    cache that already holds their K/V (plain PyTorch, as XLA computes it):
+    q [B,S,nh,hd], caches [B,max_len,nh,hd] -> [B,S,H] (before the output
+    projection)."""
+    dt = cfg.dtype
+    b, s = q.shape[0], q.shape[1]
+    max_len = k_cache.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) \
+        * (cfg.head_dim ** -0.5)
+    col = torch.arange(max_len, device=q.device)
+    row = offset + torch.arange(s, device=q.device)
+    mask = (col[None, :] <= row[:, None])[None, None] & (valid_mask[:, None, None, :] > 0)
+    attn = torch.softmax(torch.where(mask, logits, _NEG), dim=-1).to(dt)
+    out = torch.einsum("bhqk,bkhd->bqhd", attn, v_cache.to(dt))
+    return out.reshape(b, s, cfg.n_embd)
+
+
+def gpt2_forward(
+    params: Params,
+    inputs_embeds: torch.Tensor,   # [B,S,H]
+    positions: torch.Tensor,       # [B,S] absolute position ids
+    valid_mask: torch.Tensor,      # [B,max_len] 1 where a real token sits
+    cache: Cache,                  # contiguous; updated in place
+    offset: int,                   # cache write offset
+    cfg: GPT2Config,
+    wte_t: Optional[torch.Tensor] = None,
+    last_only: bool = False,
+    return_stats: bool = False,
+    row_stats: bool = True,
+) -> Tuple[Any, Cache]:
+    """Prefill (S > 1 at offset 0) and single-token decode (S == 1 at offset
+    t). Returns (logits, cache): the lm_stats 4-tuple of the last position
+    over ``wte_t`` with ``return_stats`` (the decode path), else [B,S,V] f32
+    logits of every position."""
+    dt = cfg.dtype
+    x = inputs_embeds.to(dt) + _position_embeds(params, positions, dt)
+    kv = cache["kv"]
+    b, s = x.shape[:2]
+    blocks = params["blocks"]
+    for layer in range(cfg.n_layer):
+        blk = {k: v[layer] for k, v in blocks.items()}
+        a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
+        qkv = linear(a_in, blk["attn_w"], blk["attn_b"]).reshape(b, s, 3, cfg.n_head, cfg.head_dim)
+        kv[layer, :, offset:offset + s] = qkv[:, :, 1:3].to(kv.dtype)
+        a_out = _attend(qkv[:, :, 0], kv[layer, :, :, 0], kv[layer, :, :, 1],
+                        offset, valid_mask, cfg)
+        x = x + linear(a_out, blk["proj_w"], blk["proj_b"])
+        x = x + _mlp(x, blk, cfg)
+    if last_only and s > 1:
+        x = x[:, -1:, :]
+    x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
+    if return_stats:
+        return lm_stats(x[:, -1, :], wte_t, cfg, need_row_stats=row_stats), cache
+    return x.float() @ params["wte"].to(dt).float().t(), cache
+
+
+def gpt2_beam_step(
+    params: Params,
+    token_embeds: torch.Tensor,    # [R, H] one new token per beam row (R = B*K)
+    positions: torch.Tensor,       # [R] absolute position ids
+    prefill_cache: Cache,          # {k, v: [L, B, S0, H]} read-only, shared by beams
+    prefill_valid: torch.Tensor,   # [B, S0] int32 left-pad flags
+    gen_cache: Cache,              # {kv: [L, N, 2, R, H]} append-only, updated in place
+    anc: torch.Tensor,             # [R, N] int32 writer row of each gen column
+    t: int,                        # current step (gen column)
+    num_beams: int,
+    cfg: GPT2Config,
+    wte_t: torch.Tensor,           # [H, Vp]
+) -> Tuple[Tuple, Cache]:
+    """One beam-search decode step over the split cache: writes step t's K/V
+    at gen column t of every row, attends through the beam-attention kernel,
+    and returns (lm_stats 4-tuple with row stats, gen_cache)."""
+    dt = cfg.dtype
+    r, h = token_embeds.shape
+    x = token_embeds.to(dt) + _position_embeds(params, positions, dt)   # [R, H]
+    gkv = gen_cache["kv"]
+    pk_all, pv_all = prefill_cache["k"], prefill_cache["v"]
+    blocks = params["blocks"]
+    for layer in range(cfg.n_layer):
+        blk = {k: v[layer] for k, v in blocks.items()}
+        a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
+        qkv = linear(a_in, blk["attn_w"], blk["attn_b"]).reshape(r, 3, h)
+        gkv[layer, t] = qkv[:, 1:3].transpose(0, 1).to(gkv.dtype)
+        out = beam_attention(qkv[:, 0], gkv[layer], pk_all[layer], pv_all[layer],
+                             prefill_valid, anc, t, num_beams, cfg.n_head)
+        x = x + linear(out, blk["proj_w"], blk["proj_b"])
+        x = x + _mlp(x, blk, cfg)
+    x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
+    return lm_stats(x, wte_t, cfg, need_row_stats=True), gen_cache

@@ -1,0 +1,2 @@
+"""Device ops of the port: the four hand-written CUDA kernels of the caption
+path (each beside its plain PyTorch version) and the prefix norm."""

@@ -1,0 +1,156 @@
+"""Build and load the hand-written Hopper kernels (``ops/csrc/*.cu``).
+
+On first use the CUDA sources are compiled with ``nvcc`` into one shared
+library with a plain C interface, in a build directory keyed by a hash of the
+sources and flags, and loaded with ``ctypes``. Every pointer and the stream
+pass as ``c_void_p``, every integer as ``c_int``. Each C entry point returns
+the ``cudaError_t`` of its launch; :func:`launch` raises on anything but 0.
+
+There is no fallback here: a failed build or launch raises. The CPU path of
+each kernel is its plain PyTorch version, chosen by the wrapper because its
+tensor lies on the CPU, never because the kernel failed.
+
+The build directory is ``build/cuda_kernels`` at the root of the checkout
+(listed in ``.gitignore``); ``VIDEO_CAPTION_TORCH_BUILD_DIR`` moves it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+
+SRC_DIR = Path(__file__).resolve().with_name("csrc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argument types (ops/csrc/*.cu)
+SIGNATURES: Dict[str, List] = {
+    "vct_encoder_attention": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "vct_prefix_project": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vct_lm_head_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vct_beam_attention": [_P, _I, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None
+"""Wall time of the nvcc build in this process (None if the library was
+already built, or not yet loaded)."""
+
+
+def build_dir() -> Path:
+    env = os.environ.get("VIDEO_CAPTION_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[2] / "build" / "cuda_kernels"
+
+
+def nvcc_path() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
+        if home and Path(home, "bin", "nvcc").is_file():
+            return str(Path(home, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+    return found
+
+
+def sources() -> List[Path]:
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(SRC_DIR.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(lib_path: Path) -> None:
+    """Compile every source into ``lib_path`` (atomically: a concurrent build
+    of the same sources writes the same bytes under its own temporary name)."""
+    global build_seconds
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - start
+    log = lib_path.with_suffix(".log")
+    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib_path)
+
+
+def library_path() -> Path:
+    return build_dir() / f"libvct_kernels_{_digest()}.so"
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.is_file():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.vct_error_string.argtypes = [ctypes.c_int]
+            lib.vct_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def build_log() -> str:
+    """nvcc's output for the current sources (register and shared-memory
+    use per kernel from -Xptxas=-v), or '' before the first build."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """The dtype code the C entry points take (csrc/common.cuh)."""
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {dtype}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, *args) -> None:
+    """Call a C entry point; raise if its launch reported a CUDA error."""
+    lib = library()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} ({lib.vct_error_string(rc).decode()})")
+
+
+def require_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

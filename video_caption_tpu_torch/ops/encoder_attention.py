@@ -1,0 +1,57 @@
+"""ViT encoder attention over the raw fused-QKV activation (kernel K1).
+
+Counterpart of video_caption_tpu/ops/pallas/encoder_attention.py. The CUDA
+kernel is ``csrc/encoder_attention.cu``; ``encoder_attention_ref`` is the
+plain PyTorch version, the mirror of the JAX package's ``_xla_reference``.
+"""
+from __future__ import annotations
+
+import torch
+
+from video_caption_tpu_torch.ops import build
+
+launches = 0
+"""Number of times ``encoder_attention`` launched its CUDA kernel."""
+
+HEAD_DIM = 64       # the head dim the kernel is built for
+MAX_SEQ = 443       # K and V of one head in f32 must fit 227 KB of shared memory
+
+
+def encoder_attention_ref(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[N, S, 3H] -> [N, S, H]: f32 logits and softmax, probabilities cast to
+    the input dtype, AV in the input dtype, heads merged."""
+    n, s, h3 = qkv.shape
+    h = h3 // 3
+    hd = h // num_heads
+    r = qkv.reshape(n, s, 3, num_heads, hd)
+    q = r[:, :, 0].transpose(1, 2)
+    k = r[:, :, 1].transpose(1, 2)
+    v = r[:, :, 2].transpose(1, 2)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd ** -0.5)
+    attn = torch.softmax(logits, dim=-1).to(qkv.dtype)
+    out = torch.matmul(attn, v)
+    return out.transpose(1, 2).reshape(n, s, h)
+
+
+def encoder_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Fused-QKV activation [N, S, 3H] -> attention output [N, S, H].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    takes float32 or bfloat16, head dim 64 and S <= 443, and raises on
+    anything else."""
+    global launches
+    if qkv.device.type == "cpu":
+        return encoder_attention_ref(qkv, num_heads)
+    build.require_cuda(qkv, "qkv")
+    if qkv.ndim != 3 or qkv.shape[-1] != 3 * num_heads * HEAD_DIM:
+        raise ValueError(f"qkv must be [N, S, 3 * {num_heads} * {HEAD_DIM}], got {tuple(qkv.shape)}")
+    n, s, h3 = qkv.shape
+    if not 0 < s <= MAX_SEQ:
+        raise ValueError(f"sequence length {s} outside 1..{MAX_SEQ}")
+    out = torch.empty((n, s, h3 // 3), dtype=qkv.dtype, device=qkv.device)
+    if n == 0:
+        return out
+    build.launch("vct_encoder_attention", qkv.data_ptr(), out.data_ptr(), n, s, h3 // 3,
+                 num_heads, build.dtype_code(qkv.dtype), build.stream_of(qkv))
+    launches += 1
+    return out

@@ -1,0 +1,75 @@
+"""LM head with the decode step's selection statistics (kernel K3).
+
+Counterpart of video_caption_tpu/ops/pallas/lm_head.py. The CUDA kernel is
+``csrc/lm_head.cu``; ``lm_head_stats_ref`` is the plain PyTorch version, the
+mirror of the XLA body of ``gpt2.lm_stats``.
+
+The window of 128 columns is part of the selection algorithm: the window
+maxima feed ``logits_process.exact_topk``'s two-stage top-k.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from video_caption_tpu_torch.ops import build
+
+WINDOW = 128
+
+launches = 0
+"""Number of times ``lm_head_stats`` launched its CUDA kernels."""
+
+Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def lm_head_stats_ref(x: torch.Tensor, wte_t: torch.Tensor, vocab_size: int) -> Stats:
+    """(logits [R,Vp] f32 with -inf pad columns, wmax [R,Vp/128], m [R], l [R]).
+
+    The product takes both operands in f32: products of bf16 values are exact
+    in f32, so this equals a bf16 product with f32 accumulation up to
+    summation order."""
+    logits = x.float() @ wte_t.float()
+    r, vp = logits.shape
+    if vp != vocab_size:
+        col = torch.arange(vp, device=x.device)
+        logits = torch.where(col < vocab_size, logits, float("-inf"))
+    wmax = logits.reshape(r, vp // WINDOW, WINDOW).amax(dim=-1)
+    m = logits.amax(dim=-1)
+    l = torch.exp(logits - m[:, None]).sum(dim=-1)
+    return logits, wmax, m, l
+
+
+def lm_head_stats(x: torch.Tensor, wte_t: torch.Tensor, vocab_size: int) -> Stats:
+    """x [R, H] @ wte_t [H, Vp] with the selection statistics.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    takes x and wte_t of one dtype (float32 or bfloat16), Vp a multiple of 128
+    and any R, and raises on anything else."""
+    global launches
+    if x.device.type == "cpu":
+        return lm_head_stats_ref(x, wte_t, vocab_size)
+    build.require_cuda(x, "x")
+    build.require_cuda(wte_t, "wte_t")
+    if x.dtype != wte_t.dtype:
+        raise TypeError(f"x and wte_t must share a dtype, got {x.dtype} and {wte_t.dtype}")
+    if x.ndim != 2 or wte_t.ndim != 2 or x.shape[1] != wte_t.shape[0]:
+        raise ValueError(f"shapes x {tuple(x.shape)} and wte_t {tuple(wte_t.shape)} do not match")
+    r, h = x.shape
+    vp = wte_t.shape[1]
+    if vp % WINDOW or not 0 < vocab_size <= vp:
+        raise ValueError(f"padded vocab {vp} must be a multiple of {WINDOW} holding {vocab_size}")
+    nwin = vp // WINDOW
+    f32 = dict(dtype=torch.float32, device=x.device)
+    logits = torch.empty((r, vp), **f32)
+    wmax = torch.empty((r, nwin), **f32)
+    lpart = torch.empty((r, nwin), **f32)
+    m = torch.empty((r,), **f32)
+    l = torch.empty((r,), **f32)
+    if r == 0:
+        return logits, wmax, m, l
+    build.launch("vct_lm_head_stats", x.data_ptr(), wte_t.data_ptr(), logits.data_ptr(),
+                 wmax.data_ptr(), lpart.data_ptr(), m.data_ptr(), l.data_ptr(),
+                 r, h, vp, vocab_size, build.dtype_code(x.dtype), build.stream_of(x))
+    launches += 1
+    return logits, wmax, m, l
