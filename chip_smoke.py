@@ -6,16 +6,27 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 
 1. environment: requires CUDA; prints the torch/CUDA versions and the card's
    name and power limit (nvidia-smi);
-2. build: compiles the four hand-written kernels (ops/csrc/*.cu) with nvcc;
+2. build: compiles the six hand-written kernels (ops/csrc/*.cu), one nvcc
+   per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   main path's shapes (error beside its tolerance, median times);
+   main path's shapes (error beside its tolerance, median times of the
+   kernel, the plain version and, where there is one, a single PyTorch call
+   of the same function, beside the bound);
 4. engine: a full-width ViT-B/16 + GPT-2 (124M) engine with seeded random
    bf16 weights, 16 frames of 224x224 JPEGs per request: a warm-up request,
    then timed requests through ``InferenceEngine.infer`` with the core
-   presets, with the kernels' launch counts read around them; one request
-   with the serving presets; the prefix and the prefill logits against the
-   plain path in f32 on the CPU on a 2-frame input;
-5. the kernel table as one JSON line, the nvidia-smi line, and last
+   presets, with the kernels' launch counts read around them (the default
+   configuration launches the four kernels of the default path and neither
+   fused-decode kernel); one request with the serving presets;
+5. fused decode: one engine with ``compile.use_pallas_decode_attention`` and
+   one with ``compile.use_pallas_decode_layer`` (the default engine's
+   parameters), each with a warm-up and timed core-preset requests, launch
+   counts read around them, and the sampled (``natural``) group timed alone
+   beside the default engine's;
+6. reference: the prefix and the prefill logits against the plain path in
+   f32 on the CPU on a 2-frame input, and for each fused-decode engine the
+   logits of 4 K=1 decode steps against the same steps in f32 on the CPU;
+7. the kernel table as one JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 With ``--report PATH`` every check, latency and result is also written to
@@ -24,6 +35,7 @@ PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -32,13 +44,17 @@ import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 SEED = 0
 NUM_FRAMES = 16
 IMAGE_SIZE = 224
 TIMED_REQUESTS = 6
+FUSED_REQUESTS = 3
+DECODE_STEPS = 4
+NATURAL = ("natural", "Write a short, natural caption:")   # the core set's sampled preset
+SWITCHES = {"decode_attention": "use_pallas_decode_attention",
+            "decode_layer": "use_pallas_decode_layer"}
 # bf16 on the card vs f32 on the CPU through 12 ViT layers (or 12 GPT-2
 # layers): the deployment bf16-vs-f32 bound, relative to the largest value
 REL_TOL = 5e-2
@@ -54,26 +70,6 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_videos(root: Path, count: int, frames: int, rng: np.random.RandomState):
-    """JPEG frame directories: a moving gradient plus noise, so neighbouring
-    frames differ the way video frames do."""
-    from PIL import Image
-
-    yy, xx = np.mgrid[0:IMAGE_SIZE, 0:IMAGE_SIZE]
-    dirs = []
-    for v in range(count):
-        d = root / f"video_{v}"
-        d.mkdir()
-        for i in range(frames):
-            base = np.stack([(xx + 7 * i + 40 * v) % 256, (yy + 3 * i) % 256,
-                             (xx + yy + 11 * v) % 256], axis=-1)
-            noise = rng.randint(0, 48, base.shape)
-            img = np.clip(base + noise, 0, 255).astype(np.uint8)
-            Image.fromarray(img).save(d / f"frame_{i:05d}.jpg", quality=90)
-        dirs.append(str(d))
-    return dirs
-
-
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     got, want = got.float().cpu(), want.float().cpu()
     return float((got - want).abs().max() / want.abs().max())
@@ -87,6 +83,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    from video_caption_tpu_torch.cli.profile_request import make_videos
     from video_caption_tpu_torch.config import default_inference_config, serving_inference_config
     from video_caption_tpu_torch.engine import InferenceEngine
     from video_caption_tpu_torch.models import caption_model as cm
@@ -115,17 +112,19 @@ def main() -> int:
     torch.cuda.synchronize()
     report["kernel_checks"] = [c.as_dict() for c in checks]
     for c in checks:
+        lib = "none" if c.library_ms is None else f"{c.library_ms:.4f} ms"
+        atol = f"{c.atol:g}{' x max|plain|' if c.atol_of_max else ''}"
         log(f"kernel {c.name:18s} {c.shape:52s} max_abs_err {c.max_abs_err:.3e} "
-            f"(atol {c.atol:g} rtol {c.rtol:g}) {'ok' if c.ok else 'FAIL'} "
-            f"kernel {c.ms:.4f} ms plain {c.plain_ms:.4f} ms")
+            f"(atol {atol} rtol {c.rtol:g}) {'ok' if c.ok else 'FAIL'} "
+            f"kernel {c.ms:.4f} ms plain {c.plain_ms:.4f} ms library {lib} "
+            f"bound {c.bound_ms:.4f} ms ({c.bound_by})")
     bad = [c for c in checks if not c.ok]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
 
     # ---- 4. engine on the main path
-    rng = np.random.RandomState(SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        dirs = make_videos(Path(tmp), 3, 24, rng)
+        dirs = make_videos(Path(tmp), 3, 24, IMAGE_SIZE, SEED)
         ckpt = str(Path(tmp) / "no-checkpoint.pt")      # absent: seeded random weights
         core_cfg = default_inference_config(ckpt=ckpt, num_frames=NUM_FRAMES,
                                             image_size=IMAGE_SIZE)
@@ -139,24 +138,15 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"engine: warm-up request {time.perf_counter() - t0:.2f} s")
 
-        modules = {name: spec[3] for name, spec in selfcheck.KERNELS.items()}
-        for mod in modules.values():
-            mod.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        latencies, results = [], []
-        for i in range(TIMED_REQUESTS):
-            t0 = time.perf_counter()
-            res = engine.infer(dirs[i % len(dirs)])
-            torch.cuda.synchronize()
-            latencies.append(time.perf_counter() - t0)
-            results.append(res.to_api_dict())
-        launches = {name: mod.launches for name, mod in modules.items()}
+        latencies, results, launches = _timed_requests(engine, dirs, TIMED_REQUESTS)
         peak = torch.cuda.max_memory_allocated()
         for r in results:
             _check_result(r)
-        missing = [n for n, c in launches.items() if c == 0]
-        if missing:
-            raise AssertionError(f"the main path never launched {missing}: {launches}")
+        _require_launches(launches, selfcheck.DEFAULT_PATH, "the default main path")
+        if any(launches[n] for n in SWITCHES):
+            raise AssertionError(f"the default configuration launched a fused-decode kernel: "
+                                 f"{launches}")
         p50 = statistics.median(latencies)
         log(f"engine core presets: {len(latencies)} requests, latencies "
             f"{[round(x * 1000, 1) for x in latencies]} ms, p50 {p50 * 1000:.1f} ms, "
@@ -166,7 +156,7 @@ def main() -> int:
         log(f"engine result: {json.dumps(results[0])}")
         report["engine"] = {"presets": "core", "frames": NUM_FRAMES, "latencies_s": latencies,
                             "p50_s": p50, "captions_per_s": 1.0 / statistics.mean(latencies),
-                            "peak_bytes": peak, "launches": launches, "results": results}
+                            "peak_bytes": peak, "launches": dict(launches), "results": results}
 
         serving = InferenceEngine(serving_inference_config(ckpt=ckpt, num_frames=NUM_FRAMES,
                                                            image_size=IMAGE_SIZE),
@@ -180,7 +170,35 @@ def main() -> int:
             f"result {json.dumps(served)}")
         report["serving"] = {"latency_s": s_lat, "result": served}
 
-        # ---- correctness against the plain path in f32 on the CPU (2 frames)
+        # ---- 5. the fused K=1 decode configurations
+        natural_ms = {"default": _natural_group_ms(engine, dirs[0])}
+        log(f"engine default: natural group alone {natural_ms['default']:.1f} ms (median of 3)")
+        fused = {}
+        for kernel, switch in SWITCHES.items():
+            cfg = dataclasses.replace(core_cfg, compile=dataclasses.replace(
+                core_cfg.compile, **{switch: True}))
+            eng = InferenceEngine(cfg, params=engine.params, seed=SEED, device="cuda")
+            eng.warmup()
+            torch.cuda.synchronize()
+            lat, res, counts = _timed_requests(eng, dirs, FUSED_REQUESTS)
+            for r in res:
+                _check_result(r)
+            _require_launches(counts, selfcheck.DEFAULT_PATH + (kernel,), f"the {switch} path")
+            launches[kernel] = counts[kernel]     # the fused kernel's count is its path's
+            natural_ms[kernel] = _natural_group_ms(eng, dirs[0])
+            fused[kernel] = eng
+            log(f"engine {switch}=True: {len(lat)} requests, latencies "
+                f"{[round(x * 1000, 1) for x in lat]} ms, p50 {statistics.median(lat) * 1000:.1f} ms "
+                f"(default {p50 * 1000:.1f} ms); natural group alone {natural_ms[kernel]:.1f} ms "
+                f"(default {natural_ms['default']:.1f} ms); {kernel} launches "
+                f"{counts[kernel]} ({counts[kernel] / len(lat):g} per request); all {counts}")
+            log(f"engine {switch}=True result: {json.dumps(res[0])}")
+            report[f"engine_{kernel}"] = {"latencies_s": lat, "p50_s": statistics.median(lat),
+                                          "natural_group_ms": natural_ms[kernel],
+                                          "launches": counts, "results": res}
+        report["natural_group_ms"] = natural_ms
+
+        # ---- 6. correctness against the plain path in f32 on the CPU (2 frames)
         video = engine.load_video(dirs[1])[:, :2]
         cpu_cfg = _f32(engine.model_cfg)
         cpu_params = _f32_cpu(engine.params)
@@ -202,20 +220,35 @@ def main() -> int:
         if not (finite and prefix_err < REL_TOL and logits_err < REL_TOL
                 and pre_gpu.shape == (1, 4, 768)):
             raise AssertionError("the GPU path disagrees with the f32 plain path")
+        for kernel, eng in fused.items():
+            with torch.inference_mode():
+                steps_gpu = _decode_logits(eng.params["decoder"], eng.model_cfg.gpt2, emb_gpu)
+                steps_cpu = _decode_logits(cpu_params["decoder"], _f32(eng.model_cfg).gpt2,
+                                           emb_cpu)
+            err = rel_err(steps_gpu[..., :v], steps_cpu[..., :v])
+            finite = bool(torch.isfinite(steps_gpu[..., :v]).all())
+            log(f"reference {SWITCHES[kernel]}: {DECODE_STEPS} K=1 decode steps, logits "
+                f"{tuple(steps_gpu.shape)} rel err {err:.3e} (bound {REL_TOL:g}), finite {finite}")
+            report["reference"][f"{kernel}_steps_rel_err"] = err
+            if not (finite and err < REL_TOL):
+                raise AssertionError(f"the {SWITCHES[kernel]} decode steps disagree with the "
+                                     "f32 plain path")
 
-    # ---- 5. summary
+    # ---- 7. summary: launches of each kernel's path (the default engine's
+    # requests; the fused-decode kernels', their engines' requests); times
+    # and bound of the first check of each kernel, its single-request shape
     by_name = {}
     for c in checks:
-        entry = by_name.setdefault(c.name, {"name": c.name, "max_abs_err": 0.0})
+        entry = by_name.setdefault(c.name, {"max_abs_err": 0.0, "first": c})
         entry["max_abs_err"] = max(entry["max_abs_err"], c.max_abs_err)
-        if "ms" not in entry:      # the first check of a kernel is its single-request shape
-            entry.update(ms=c.ms, plain_ms=c.plain_ms, shape=c.shape)
     kernels = []
     for name, (route, source, replaces, _) in selfcheck.KERNELS.items():
-        e = by_name[name]
+        first = by_name[name]["first"]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": e["max_abs_err"],
-                        "ms": e["ms"], "plain_ms": e["plain_ms"]})
+                        "launches": launches[name], "max_abs_err": by_name[name]["max_abs_err"],
+                        "ms": first.ms, "plain_ms": first.plain_ms, "bound_ms": first.bound_ms,
+                        "bound_by": first.bound_by, "library_ms": first.library_ms,
+                        "shape": first.shape})
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(report, indent=1, default=str))
@@ -225,6 +258,73 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _timed_requests(engine, dirs, count):
+    """(latencies s, results, launches of every kernel) of ``count``
+    sequential requests; the counts are set to 0 just before and read just
+    after."""
+    from video_caption_tpu_torch.ops import selfcheck
+
+    modules = {name: spec[3] for name, spec in selfcheck.KERNELS.items()}
+    for mod in modules.values():
+        mod.launches = 0
+    latencies, results = [], []
+    for i in range(count):
+        t0 = time.perf_counter()
+        res = engine.infer(dirs[i % len(dirs)])
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        results.append(res.to_api_dict())
+    return latencies, results, {name: mod.launches for name, mod in modules.items()}
+
+
+def _require_launches(launches, names, path):
+    missing = [n for n in names if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{path} never launched {missing}: {launches}")
+
+
+def _natural_group_ms(engine, frames_dir, runs=3):
+    """Median ms of the sampled group alone (``generate_presets`` with the
+    natural preset only, synchronised), on one video's prefix."""
+    prefix = engine.compute_prefix(engine.load_video(frames_dir))
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate_presets(prefix, [NATURAL])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+    return statistics.median(times)
+
+
+def _decode_logits(params, cfg, embeds):
+    """Logits [DECODE_STEPS, B, Vp] of K=1 decode steps after a prefill of
+    ``embeds``, feeding fixed tokens, through gpt2_forward with ``cfg``'s
+    decode configuration."""
+    from video_caption_tpu_torch.models import gpt2 as g2
+
+    b, s0, _ = embeds.shape
+    dev = embeds.device
+    if cfg.use_pallas_decode_layer:
+        params = g2.prepare_decode_params(params, cfg)
+    wte_t = g2.lm_head_t(params, cfg)
+    cache = g2.init_cache(cfg, b, s0 + DECODE_STEPS, dev)
+    valid = torch.zeros((b, s0 + DECODE_STEPS), dtype=torch.int32, device=dev)
+    valid[:, :s0] = 1
+    pos = torch.arange(s0, device=dev)[None].expand(b, s0)
+    _, cache = g2.gpt2_forward(params, embeds, pos, valid, cache, 0, cfg, wte_t=wte_t,
+                               last_only=True, return_stats=True, row_stats=False)
+    out = []
+    for t, token in enumerate((32, 97, 32, 109)[:DECODE_STEPS]):
+        valid[:, s0 + t] = 1
+        ids = torch.full((b,), token, device=dev)
+        (logits, _, _, _), cache = g2.gpt2_forward(
+            params, params["wte"][ids][:, None], torch.full((b, 1), s0 + t, device=dev), valid,
+            cache, s0 + t, cfg, wte_t=wte_t, return_stats=True, row_stats=False)
+        out.append(logits)
+    return torch.stack(out)
 
 
 def _leaves(tree):

@@ -55,6 +55,44 @@ def test_beam_attention_kernel(cuda, videos, beams, steps, t):
     _assert_ok(selfcheck.check_beam_attention(videos, beams, 12, steps, t, cuda))
 
 
+@pytest.mark.parametrize("batch,length,heads", [(1, 64, 12), (64, 64, 12), (3, 13, 4),
+                                                (2, 300, 12)])
+def test_decode_attention_kernel(cuda, batch, length, heads):
+    _assert_ok(selfcheck.check_decode_attention(batch, length, cuda, heads=heads))
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 8, 13])     # 13 rows: two passes of 8 over a tile
+def test_decode_layer_kernel_one_layer(cuda, batch):
+    _assert_ok(selfcheck.check_decode_layer(batch, cuda, n_layer=1))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_decode_layer_kernel_full_depth(cuda, batch):
+    _assert_ok(selfcheck.check_decode_layer(batch, cuda))
+
+
+@pytest.mark.parametrize("batch,offset", [(5, 40), (2, 0), (2, 63)])
+def test_decode_layer_kernel_f32(cuda, batch, offset):
+    _assert_ok(selfcheck.check_decode_layer(batch, cuda, offset=offset, dtype=torch.float32))
+
+
+def test_decode_layer_kernel_small_width(cuda):
+    _assert_ok(selfcheck.check_decode_layer(3, cuda, n_layer=3, h=256, max_len=20, offset=19,
+                                            dtype=torch.float32))
+
+
+def test_decode_layer_writes_only_its_cache_row(cuda):
+    from video_caption_tpu_torch.ops import decode_layer as dl
+
+    x, kvf, valid, blocks = selfcheck.decode_layer_case(2, cuda, n_layer=2, offset=17)
+    before = kvf.clone()
+    dl.gpt2_decode_step(x, kvf, valid, 17, blocks, 12)
+    torch.cuda.synchronize()
+    others = torch.arange(kvf.shape[1], device=cuda) != 17
+    assert torch.equal(kvf[:, others], before[:, others])
+    assert not torch.equal(kvf[:, 17], before[:, 17])
+
+
 def test_kernel_launch_counters(cuda):
     from video_caption_tpu_torch.ops import encoder_attention as ea
 
@@ -73,3 +111,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ea.encoder_attention(torch.zeros(1, 5, 3 * 96, device=cuda), 2)   # head dim 48
     with pytest.raises(ValueError):
         lmh.lm_head_stats(torch.zeros(2, 8, device=cuda), torch.zeros(8, 200, device=cuda), 200)
+
+
+def test_fused_decode_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from video_caption_tpu_torch.ops import decode_attention as da
+    from video_caption_tpu_torch.ops import decode_layer as dl
+
+    q = torch.zeros(2, 4, 64, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(2, 8, 2, 4, 64, dtype=torch.bfloat16, device=cuda)
+    valid = torch.ones(2, 8, dtype=torch.int32, device=cuda)
+    head_minor = torch.zeros(2, 8, 64, 4, dtype=torch.bfloat16, device=cuda).permute(0, 1, 3, 2)
+    with pytest.raises(ValueError):        # a head's 64 values not contiguous
+        da.decode_attention(q, head_minor, kv[:, :, 1], valid)
+    with pytest.raises(ValueError):        # valid not int32
+        da.decode_attention(q, kv[:, :, 0], kv[:, :, 1], valid.long())
+    with pytest.raises(TypeError):
+        da.decode_attention(q.float(), kv[:, :, 0], kv[:, :, 1], valid)
+    x, kvf, valid, blocks = selfcheck.decode_layer_case(1, cuda, n_layer=1)
+    with pytest.raises(ValueError):        # LayerNorm weights must be f32
+        dl.gpt2_decode_step(x, kvf, valid, 40, {**blocks, "ln1_scale": blocks["ln1_scale"].bfloat16()},
+                            12)
+    with pytest.raises(ValueError):
+        dl.gpt2_decode_step(x, kvf, valid, 64, blocks, 12)   # offset outside the cache

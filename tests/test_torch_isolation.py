@@ -1,0 +1,114 @@
+"""The port imports nothing of the JAX package and no JAX, and its own copies
+of the reference's JAX-free modules (config, datatypes, tokenizer, presets,
+post-processing, frame loading) behave as the originals do."""
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from video_caption_tpu import config as jconfig
+from video_caption_tpu import datatypes as jdatatypes
+from video_caption_tpu.decode import presets as jpresets
+from video_caption_tpu.decode import tokenizer as jtokenizer
+from video_caption_tpu.postprocessing import candidate_ranker as jranker
+from video_caption_tpu.postprocessing import text_cleaner as jcleaner
+from video_caption_tpu.preprocessing import frame_loader as jframes
+from video_caption_tpu_torch import config, datatypes
+from video_caption_tpu_torch.decode import presets, tokenizer
+from video_caption_tpu_torch.postprocessing import candidate_ranker, text_cleaner
+from video_caption_tpu_torch.preprocessing import frame_loader
+
+REPO = Path(__file__).resolve().parents[1]
+GOLDEN = json.loads((Path(__file__).parent / "golden_clean_text.json").read_text())
+STRINGS = ["A man is riding a horse.", "  two dogs\tplay in the snow  ", "Ünïcödé — ok? 123",
+           ""]
+
+
+def test_no_module_of_the_port_imports_jax_or_the_jax_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import video_caption_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'video_caption_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert len(names) > 20, names\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
+
+
+def test_config_copy_has_the_same_fields_and_defaults():
+    for port_cls, jax_cls in ((config.InferenceConfig, jconfig.InferenceConfig),
+                              (config.CompileConfig, jconfig.CompileConfig),
+                              (config.MemoryConfig, jconfig.MemoryConfig),
+                              (config.MeshConfig, jconfig.MeshConfig)):
+        assert dataclasses.asdict(port_cls()) == dataclasses.asdict(jax_cls())
+    assert dataclasses.asdict(config.serving_inference_config(num_frames=16)) == \
+        dataclasses.asdict(jconfig.serving_inference_config(num_frames=16))
+    assert config.default_inference_config().cache_key() == \
+        jconfig.default_inference_config().cache_key()
+
+
+def test_config_copy_reads_the_same_environment(monkeypatch):
+    monkeypatch.setenv("VIDEO_CAPTION_PALLAS_DECODE", "1")
+    monkeypatch.setenv("VIDEO_CAPTION_PALLAS_DECODE_LAYER", "true")
+    assert config._env_bool("VIDEO_CAPTION_PALLAS_DECODE", False) is True
+    assert config._env_bool("VIDEO_CAPTION_PALLAS_DECODE_LAYER", False) == \
+        jconfig._env_bool("VIDEO_CAPTION_PALLAS_DECODE_LAYER", False)
+
+
+@pytest.mark.parametrize("raw,expected", GOLDEN)
+def test_clean_text_copy_matches_golden(raw, expected):
+    assert text_cleaner.clean_text(raw) == expected == jcleaner.clean_text(raw)
+
+
+def test_ranker_copy_matches():
+    cands = [("S1", "a man is riding a horse"), ("S2", "A dog."), ("S3", "")]
+    assert candidate_ranker.select_best(cands) == jranker.select_best(cands)
+    for _, text in cands:
+        assert candidate_ranker.score_sentence(text) == jranker.score_sentence(text)
+
+
+@pytest.mark.parametrize("text", STRINGS)
+def test_tokenizer_copy_matches(text):
+    port, ref = tokenizer.get_tokenizer(), jtokenizer.get_tokenizer()
+    assert type(port).__name__ == type(ref).__name__
+    ids = port.encode(text)
+    assert ids == ref.encode(text)
+    assert port.decode(ids, skip_special_tokens=True) == ref.decode(ids, skip_special_tokens=True)
+    assert (port.eos_token_id, port.pad_token_id, port.bos_token_id) == \
+        (ref.eos_token_id, ref.pad_token_id, ref.bos_token_id)
+
+
+@pytest.mark.parametrize("name", jpresets.preset_names() + ("unknown", ""))
+def test_preset_copy_matches(name):
+    assert presets.preset_to_kwargs(name) == jpresets.preset_to_kwargs(name)
+
+
+def test_datatypes_copy_matches():
+    kw = dict(s1="A man.", s2="A dog runs.", s3="")
+    port = datatypes.InferenceResult(candidates=datatypes.CaptionCandidates(**kw),
+                                     best_key="S2", best_text="A dog runs.")
+    ref = jdatatypes.InferenceResult(candidates=jdatatypes.CaptionCandidates(**kw),
+                                     best_key="S2", best_text="A dog runs.")
+    assert port.to_api_dict() == ref.to_api_dict()
+
+
+def test_frame_loader_copy_matches(tmp_path):
+    rng = np.random.RandomState(4)
+    for i in range(5):
+        Image.fromarray(rng.randint(0, 255, (40, 48, 3), np.uint8)).save(
+            tmp_path / f"frame_{i:05d}.jpg")
+    files = frame_loader.list_frames(tmp_path)
+    assert files == jframes.list_frames(tmp_path)
+    assert frame_loader.sample_frame_paths(files, 3) == jframes.sample_frame_paths(files, 3)
+    np.testing.assert_array_equal(frame_loader.load_image_u8(files[0], 32),
+                                  jframes.load_image_u8(files[0], 32))

@@ -38,7 +38,7 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, force=True)
     args = build_parser().parse_args(argv)
 
-    from video_caption_tpu.config import default_inference_config
+    from video_caption_tpu_torch.config import default_inference_config
     from video_caption_tpu_torch.engine import InferenceEngine
 
     overrides = dict(

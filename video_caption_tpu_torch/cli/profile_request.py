@@ -1,0 +1,161 @@
+"""Where one request's time goes on the GPU, for each greedy/sampled decode
+configuration of the port.
+
+    python -m video_caption_tpu_torch.cli.profile_request [--requests 6] [--trace-dir DIR]
+
+Builds the full-width engine (ViT-B/16 + GPT-2 124M, seeded random bf16
+weights, 16 frames of 224x224 JPEGs, core presets) once per configuration:
+the default, ``compile.use_pallas_decode_attention`` and
+``compile.use_pallas_decode_layer``, all on the same weights. For each:
+
+1. stage times, the median over ``--requests`` requests with a synchronise
+   after each stage (host clock): frame load and upload, the visual branch
+   (ViT, prefix norm, mapper), and each decode group alone;
+2. one whole request under ``torch.profiler`` (CPU and CUDA activity): the
+   number of device kernels, their summed device time, the device busy
+   share (the union of kernel intervals over the profiled span) and the
+   device time by kernel name.
+
+Prints one JSON object per configuration; with ``--trace-dir`` also writes
+a Chrome trace per configuration. Needs an NVIDIA GPU: without one it exits
+with an error and measures nothing.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import sys
+import tempfile
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+CONFIGS = ("default", "use_pallas_decode_attention", "use_pallas_decode_layer")
+
+
+def make_videos(root: Path, count: int, frames: int, size: int, seed: int):
+    """JPEG frame directories: a moving gradient plus noise."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    dirs = []
+    for v in range(count):
+        d = root / f"video_{v}"
+        d.mkdir()
+        for i in range(frames):
+            base = np.stack([(xx + 7 * i + 40 * v) % 256, (yy + 3 * i) % 256,
+                             (xx + yy + 11 * v) % 256], axis=-1)
+            img = np.clip(base + rng.randint(0, 48, base.shape), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(d / f"frame_{i:05d}.jpg", quality=90)
+        dirs.append(str(d))
+    return dirs
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1000
+
+
+def stage_times(engine, frames_dir: str) -> dict:
+    """ms of each stage of one request, run stage by stage."""
+    from video_caption_tpu_torch.decode.presets import preset_to_kwargs
+
+    c = engine.config
+    pairs = [(c.preset1, c.prompt1), (c.preset2, c.prompt2), (c.preset3, c.prompt3)]
+    groups = defaultdict(list)
+    for preset, prompt in pairs:
+        groups[json.dumps(preset_to_kwargs(preset), sort_keys=True)].append((preset, prompt))
+    video, ms = _timed(lambda: engine.load_video(frames_dir))
+    out = {"frame_load": ms}
+    prefix, out["visual"] = _timed(lambda: engine.compute_prefix(video))
+    for members in groups.values():
+        name = f"group {members[0][0]} x{len(members)}"
+        _, out[name] = _timed(lambda: engine.generate_presets(prefix, members))
+    out["total"] = sum(out.values())
+    return out
+
+
+def device_profile(engine, frames_dir: str, trace: Path = None) -> dict:
+    """Kernel count, device time, busy share and time by kernel name of one
+    request under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.infer(frames_dir)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    starts = [e.time_range.start for e in events]
+    ends = [e.time_range.end for e in events]
+    wall_us = max(ends) - min(starts)
+    by_name = defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    if trace is not None:
+        prof.export_chrome_trace(str(trace))
+    return {"kernels": len(kernels), "device_ms": sum(v[1] for v in by_name.values()) / 1000,
+            "busy_ms": busy / 1000, "profiled_wall_ms": wall_us / 1000,
+            "busy_share": busy / wall_us if wall_us else 0.0,
+            "top": [{"name": n[:90], "launches": c, "ms": t / 1000} for n, (c, t) in top]}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--requests", type=int, default=6)
+    p.add_argument("--frames", type=int, default=16)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--trace-dir", default=None)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_request: needs an NVIDIA GPU (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 1
+    from video_caption_tpu_torch.config import default_inference_config
+    from video_caption_tpu_torch.engine import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trace_dir = Path(args.trace_dir) if args.trace_dir else None
+    if trace_dir:
+        trace_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = make_videos(Path(tmp), 3, args.frames + 8, 224, args.seed)
+        base = default_inference_config(ckpt=str(Path(tmp) / "absent.pt"),
+                                        num_frames=args.frames, image_size=224)
+        params = None
+        for name in CONFIGS:
+            cfg = base if name == "default" else dataclasses.replace(
+                base, compile=dataclasses.replace(base.compile, **{name: True}))
+            engine = InferenceEngine(cfg, params=params, seed=args.seed, device="cuda")
+            params = engine.params
+            engine.warmup()
+            runs = [stage_times(engine, dirs[i % len(dirs)]) for i in range(args.requests)]
+            stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+            prof = device_profile(engine, dirs[0],
+                                  trace_dir / f"{name}.json" if trace_dir else None)
+            print(json.dumps({"config": name, "device": torch.cuda.get_device_name(0),
+                              "requests": args.requests, "stage_ms_median": stages,
+                              "profile": prof}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

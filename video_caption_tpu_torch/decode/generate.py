@@ -68,7 +68,7 @@ def _prefill(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor, max_len: i
     position, cache, valid [B, max_len] int32, row_lengths [B])."""
     b, s0, _ = inputs_embeds.shape
     device = inputs_embeds.device
-    cache = g2.init_cache(cfg, b, max_len, device)
+    cache = g2.init_cache(cfg, b, max_len, device, layout="contiguous" if split else "auto")
     mask = torch.ones((b, s0), dtype=torch.int32, device=device) if prefill_mask is None \
         else prefill_mask.to(torch.int32)
     valid = torch.zeros((b, max_len), dtype=torch.int32, device=device)
@@ -114,11 +114,15 @@ def sample_select(
 def greedy_or_sample(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor,
                      dp: DecodeParams, generator: Optional[torch.Generator] = None,
                      prefill_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Greedy or sampled decode over the contiguous cache; returns ids
-    [B, max_new_tokens] (EOS after a row finishes)."""
+    """Greedy or sampled decode over the contiguous cache (the flat one with
+    ``cfg.use_pallas_decode_layer``); returns ids [B, max_new_tokens] (EOS
+    after a row finishes)."""
     b, s0, _ = inputs_embeds.shape
     n = dp.max_new_tokens
     device = inputs_embeds.device
+    if cfg.use_pallas_decode_layer:
+        # the decode-layer kernel's weight dtypes, cast once per call
+        params = g2.prepare_decode_params(params, cfg)
     wte_t = g2.lm_head_t(params, cfg)
     (logits, wmax, _, _), cache, valid, row_len = _prefill(
         params, cfg, inputs_embeds, s0 + n, prefill_mask, wte_t, split=False, row_stats=False)

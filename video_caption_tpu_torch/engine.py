@@ -6,7 +6,10 @@ native library is unavailable) -> one upload of uint8 pixels -> ViT-B/16 ->
 prefix norm -> mapper -> one grouped decode per distinct policy (presets
 with the same policy decode as one left-padded batch) -> text cleaning ->
 best-of-3. Every kernel of that path is a hand-written CUDA kernel on the
-GPU (ops/), and its plain PyTorch version on the CPU.
+GPU (ops/), and its plain PyTorch version on the CPU. The compile switches
+``use_pallas_decode_attention`` and ``use_pallas_decode_layer`` (off by
+default, as in the JAX package) put the greedy/sampled decode steps through
+the decode-attention or the whole-step decode-layer kernel.
 
 Not ported yet: the device video LRU, the overlapped chunk upload, the
 fused/AOT request programs, the unified mixed-policy decode (its tokens are
@@ -21,12 +24,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from video_caption_tpu.config import InferenceConfig
-from video_caption_tpu.datatypes import CaptionCandidates, InferenceResult
-from video_caption_tpu.decode.presets import preset_to_kwargs
-from video_caption_tpu.decode.tokenizer import get_tokenizer
-from video_caption_tpu.postprocessing.candidate_ranker import select_best
-from video_caption_tpu.postprocessing.text_cleaner import clean_text
+from video_caption_tpu_torch.config import InferenceConfig
+from video_caption_tpu_torch.datatypes import CaptionCandidates, InferenceResult
+from video_caption_tpu_torch.decode.presets import preset_to_kwargs
+from video_caption_tpu_torch.decode.tokenizer import get_tokenizer
+from video_caption_tpu_torch.postprocessing.candidate_ranker import select_best
+from video_caption_tpu_torch.postprocessing.text_cleaner import clean_text
 from video_caption_tpu_torch.decode.generate import DecodeParams, generate_prefixed
 from video_caption_tpu_torch.models import caption_model as cm
 from video_caption_tpu_torch.models import gpt2 as g2
@@ -44,7 +47,9 @@ def model_config_from_inference(config: InferenceConfig) -> cm.CaptionModelConfi
     dtype = _DTYPES[config.compile.dtype]
     return cm.CaptionModelConfig(
         vit=vt.ViTConfig(image_size=config.image_size, dtype=dtype),
-        gpt2=g2.GPT2Config(dtype=dtype),
+        gpt2=g2.GPT2Config(dtype=dtype,
+                           use_pallas_decode=config.compile.use_pallas_decode_attention,
+                           use_pallas_decode_layer=config.compile.use_pallas_decode_layer),
         prefix_len=config.prefix_len,
         ln_scale=config.ln_scale,
         in_weight=config.in_weight,
@@ -166,8 +171,8 @@ class InferenceEngine:
         """frames_dir -> uint8 [1,T,3,S,S] on the engine's device (one upload).
         Stride sampling and tail padding as the JAX engine; frames decode in
         the C++ loader, or PIL where the native library is unavailable."""
-        from video_caption_tpu.native.loader import load_frames_native_u8
-        from video_caption_tpu.preprocessing.frame_loader import (
+        from video_caption_tpu_torch.native.loader import load_frames_native_u8
+        from video_caption_tpu_torch.preprocessing.frame_loader import (
             list_frames, load_image_u8, sample_frame_paths,
         )
 

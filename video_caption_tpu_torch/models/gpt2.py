@@ -2,16 +2,23 @@
 video_caption_tpu/models/gpt2.py).
 
 Parameters keep the JAX package's layout (blocks stacked along a leading
-layer axis, projections stored ``[in, out]`` as in HF GPT-2's Conv1D). Two
-cache layouts, as in the JAX package:
+layer axis, projections stored ``[in, out]`` as in HF GPT-2's Conv1D). The
+cache layouts of the JAX package:
 
 - contiguous ``[L, B, max_len, 2, nh, hd]`` for greedy/sampled decode, read
-  by plain PyTorch attention (the decode_attention and decode_layer kernels
-  are off by default in the reference and not ported yet);
+  by plain PyTorch attention, or with ``use_pallas_decode`` by the
+  decode-attention kernel (ops/decode_attention.py) at one query token;
+- flat ``kvf [L, max_len, B, 2H]`` with ``use_pallas_decode_layer``: the
+  prefill runs over a contiguous cache and is reshaped into it once, and
+  every K=1 step runs all layers in the decode-layer kernel
+  (ops/decode_layer.py);
 - for beam search, a read-only prefill cache ``{k, v: [L, B, S0, H]}``
   shared by a video's beams plus an append-only, time-major generated cache
   ``[L, N, 2, R, H]`` read by the beam-attention kernel
   (ops/beam_attention.py) through the ancestry index ``anc``.
+
+Both decode switches are off by default, as in the JAX package; with both
+set, the flat cache (decode_layer) takes the step.
 
 Unlike the JAX package, the caches are updated IN PLACE: a forward writes
 its new K/V rows into the buffer it was given and returns the same dict.
@@ -28,6 +35,8 @@ import torch.nn.functional as F
 
 from video_caption_tpu_torch.models.vit import layer_norm, linear
 from video_caption_tpu_torch.ops.beam_attention import beam_attention
+from video_caption_tpu_torch.ops.decode_attention import decode_attention
+from video_caption_tpu_torch.ops.decode_layer import gpt2_decode_step
 from video_caption_tpu_torch.ops.lm_head import WINDOW, lm_head_stats
 
 Params = Dict[str, Any]
@@ -46,6 +55,11 @@ class GPT2Config:
     n_head: int = 12
     dtype: torch.dtype = torch.bfloat16
     ln_eps: float = 1e-5
+    use_pallas_decode: bool = False
+    """K=1 decode attention through the decode-attention kernel."""
+    use_pallas_decode_layer: bool = False
+    """K=1 decode steps through the whole-step decode-layer kernel over the
+    flat ``kvf`` cache (init_cache). Takes precedence over use_pallas_decode."""
 
     @property
     def head_dim(self) -> int:
@@ -82,10 +96,19 @@ def init_gpt2_params(gen: torch.Generator, cfg: GPT2Config, device) -> Params:
 
 
 def init_cache(cfg: GPT2Config, batch: int, max_len: int, device,
-               layout: str = "contiguous") -> Cache:
-    """Zeroed KV cache in the compute dtype: ``contiguous`` [L, B, max_len, 2,
-    nh, hd] (K at index 0, V at 1) or ``beam_gen`` [L, max_len(N), 2,
-    batch(R), H]."""
+               layout: str = "auto") -> Cache:
+    """Zeroed KV cache in the compute dtype: ``contiguous`` {kv: [L, B,
+    max_len, 2, nh, hd]} (K at index 0, V at 1), ``kvf`` {kvf: [L, max_len,
+    B, 2H]} (K in [..., :H], V in [..., H:]) or ``beam_gen`` {kv: [L,
+    max_len(N), 2, batch(R), H]}; ``auto`` is ``kvf`` with
+    use_pallas_decode_layer, else ``contiguous``. Unlike the JAX package the
+    flat layout is not gated on the device: on the CPU its step runs the
+    kernel's plain version."""
+    if layout == "auto":
+        layout = "kvf" if cfg.use_pallas_decode_layer else "contiguous"
+    if layout == "kvf":
+        shape = (cfg.n_layer, max_len, batch, 2 * cfg.n_embd)
+        return {"kvf": torch.zeros(shape, dtype=cfg.dtype, device=device)}
     if layout == "beam_gen":
         shape = (cfg.n_layer, max_len, 2, batch, cfg.n_embd)
     elif layout == "contiguous":
@@ -116,6 +139,15 @@ def lm_stats(x2: torch.Tensor, wte_t: torch.Tensor, cfg: GPT2Config,
     return logits, wmax, m, l
 
 
+def prepare_decode_params(params: Params, cfg: GPT2Config) -> Params:
+    """The stacked block weights as the decode-layer kernel takes them, cast
+    once per generate call (outside the step loop): LayerNorm weights in
+    f32, the rest in the compute dtype."""
+    blocks = {k: v.float() if k.startswith("ln") else v.to(cfg.dtype)
+              for k, v in params["blocks"].items()}
+    return {**params, "blocks": blocks}
+
+
 def _position_embeds(params: Params, positions: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """wpe rows of ``positions``, clamped into the table as JAX clamps an
     out-of-range gather (a long prompt plus a long decode can pass the end
@@ -139,6 +171,10 @@ def _attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     projection)."""
     dt = cfg.dtype
     b, s = q.shape[0], q.shape[1]
+    if cfg.use_pallas_decode and s == 1:
+        # one query token: valid_mask marks only the columns up to its
+        # position, so it already encodes causality
+        return decode_attention(q[:, 0], k_cache, v_cache, valid_mask).reshape(b, 1, cfg.n_embd)
     max_len = k_cache.shape[1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) \
         * (cfg.head_dim ** -0.5)
@@ -155,7 +191,7 @@ def gpt2_forward(
     inputs_embeds: torch.Tensor,   # [B,S,H]
     positions: torch.Tensor,       # [B,S] absolute position ids
     valid_mask: torch.Tensor,      # [B,max_len] 1 where a real token sits
-    cache: Cache,                  # contiguous; updated in place
+    cache: Cache,                  # contiguous or flat (kvf); updated in place
     offset: int,                   # cache write offset
     cfg: GPT2Config,
     wte_t: Optional[torch.Tensor] = None,
@@ -167,10 +203,13 @@ def gpt2_forward(
     t). Returns (logits, cache): the lm_stats 4-tuple of the last position
     over ``wte_t`` with ``return_stats`` (the decode path), else [B,S,V] f32
     logits of every position."""
+    if "kvf" in cache:
+        return _forward_kvf(params, inputs_embeds, positions, valid_mask, cache, offset, cfg,
+                            wte_t, last_only, return_stats, row_stats)
     dt = cfg.dtype
     x = inputs_embeds.to(dt) + _position_embeds(params, positions, dt)
-    kv = cache["kv"]
     b, s = x.shape[:2]
+    kv = cache["kv"]
     blocks = params["blocks"]
     for layer in range(cfg.n_layer):
         blk = {k: v[layer] for k, v in blocks.items()}
@@ -187,6 +226,31 @@ def gpt2_forward(
     if return_stats:
         return lm_stats(x[:, -1, :], wte_t, cfg, need_row_stats=row_stats), cache
     return x.float() @ params["wte"].to(dt).float().t(), cache
+
+
+def _forward_kvf(params, inputs_embeds, positions, valid_mask, cache, offset, cfg,
+                 wte_t, last_only, return_stats, row_stats):
+    """gpt2_forward over the flat cache. A step (S == 1) runs every layer in
+    the decode-layer kernel (weights as prepare_decode_params leaves them),
+    then the final LayerNorm and the LM head; a prefill runs over a
+    contiguous cache and copies it once into ``kvf`` [L, max_len, B, 2H]."""
+    kvf = cache["kvf"]
+    b, s = inputs_embeds.shape[:2]
+    if s > 1:
+        stacked = init_cache(cfg, b, kvf.shape[1], kvf.device, layout="contiguous")
+        out, stacked = gpt2_forward(params, inputs_embeds, positions, valid_mask, stacked,
+                                    offset, cfg, wte_t=wte_t, last_only=last_only,
+                                    return_stats=return_stats, row_stats=row_stats)
+        kvf.copy_(stacked["kv"].reshape(cfg.n_layer, b, kvf.shape[1], 2 * cfg.n_embd)
+                  .transpose(1, 2))
+        return out, cache
+    dt = cfg.dtype
+    x = inputs_embeds[:, 0].to(dt) + _position_embeds(params, positions[:, 0], dt)
+    xb, _ = gpt2_decode_step(x, kvf, valid_mask, offset, params["blocks"], cfg.n_head, cfg.ln_eps)
+    xb = layer_norm(xb, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
+    if return_stats:
+        return lm_stats(xb, wte_t, cfg, need_row_stats=row_stats), cache
+    return (xb.float() @ params["wte"].to(cfg.dtype).float().t())[:, None], cache
 
 
 def gpt2_beam_step(

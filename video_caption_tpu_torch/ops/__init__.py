@@ -1,2 +1,2 @@
-"""Device ops of the port: the four hand-written CUDA kernels of the caption
-path (each beside its plain PyTorch version) and the prefix norm."""
+"""Device ops of the port: the hand-written CUDA kernels of the caption path
+(each beside its plain PyTorch version) and the prefix norm."""

@@ -1,10 +1,12 @@
 """Build and load the hand-written Hopper kernels (``ops/csrc/*.cu``).
 
-On first use the CUDA sources are compiled with ``nvcc`` into one shared
-library with a plain C interface, in a build directory keyed by a hash of the
-sources and flags, and loaded with ``ctypes``. Every pointer and the stream
-pass as ``c_void_p``, every integer as ``c_int``. Each C entry point returns
-the ``cudaError_t`` of its launch; :func:`launch` raises on anything but 0.
+On first use the CUDA sources are compiled with ``nvcc``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, in a build directory keyed by a hash of the sources and
+flags, and loaded with ``ctypes``. Every pointer and the stream pass as
+``c_void_p``, every integer as ``c_int``, a float as ``c_float``. Each C
+entry point returns the ``cudaError_t`` of its launch; :func:`launch` raises
+on anything but 0.
 
 There is no fallback here: a failed build or launch raises. The CPU path of
 each kernel is its plain PyTorch version, chosen by the wrapper because its
@@ -29,9 +31,9 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().with_name("csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (ops/csrc/*.cu)
 SIGNATURES: Dict[str, List] = {
     "vct_encoder_attention": [_P, _P, _I, _I, _I, _I, _I, _P],
@@ -39,6 +41,8 @@ SIGNATURES: Dict[str, List] = {
     "vct_lm_head_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vct_beam_attention": [_P, _I, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vct_decode_attention": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
+    "vct_decode_layer": [_P] * 19 + [_I] * 6 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -79,20 +83,40 @@ def _digest() -> str:
 
 
 def _build(lib_path: Path) -> None:
-    """Compile every source into ``lib_path`` (atomically: a concurrent build
-    of the same sources writes the same bytes under its own temporary name)."""
+    """Compile every source (one nvcc each, in parallel) and link them into
+    ``lib_path`` (atomically: a concurrent build of the same sources writes
+    the same bytes under its own temporary names)."""
     global build_seconds
     lib_path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sources():
+        obj = lib_path.with_name(f"{tag}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    tmp = lib_path.with_name(f"{tag}.tmp.so")
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{out[-4000:]}")
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
     build_seconds = time.perf_counter() - start
-    log = lib_path.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    lib_path.with_suffix(".log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)
 
 

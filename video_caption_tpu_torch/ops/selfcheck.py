@@ -1,33 +1,54 @@
-"""On-card checks of the four CUDA kernels against their plain PyTorch
-versions, at the shapes the caption main path gives them.
+"""On-card checks of the six CUDA kernels against their plain PyTorch
+versions, at the shapes the caption main path (and its two fused-decode
+configurations) gives them.
 
 Each check builds seeded inputs on a CUDA device, runs the kernel wrapper and
 the plain version on the same tensors, and returns the largest absolute
-error beside the tolerance it is held to, and the median time of each (CUDA
-events, one launch per timed run). ``chip_smoke.py`` and
-``tests/test_torch_cuda_kernels.py`` both use these. The launches made here
-count in the wrappers' ``launches``; a caller that reads the counts of a main
-path run resets them after these checks.
+error beside the tolerance it is held to, the median time of each (CUDA
+events, one launch per timed run), the time of one PyTorch call computing
+the same function where there is one (``library_ms``; the port never calls
+it), and the bound: the least time the card could take for the same work,
+the larger of the bytes the function must move (each input read once, each
+output written once; where the work depends on the data, what these inputs
+need) over 3.35 TB/s and its operations over the H100's dense peak for the
+operands' type (989 TFLOP/s bf16, 67 TFLOP/s f32; NVIDIA's data sheet).
+``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py`` both use these.
+The launches made here count in the wrappers' ``launches``; a caller that
+reads the counts of a main path run resets them after these checks.
 
 Tolerances (elementwise ``|kernel - plain| <= atol + rtol * |plain|``):
 
-- encoder_attention, beam_attention: bf16 outputs of O(1). Both sides round
-  the probabilities and the output to bf16 at the same points, but sum in
-  another order, so a value can land one bf16 step (2^-8 relative) apart:
-  atol = rtol = 1e-2.
+- encoder_attention, beam_attention, decode_attention, and decode_layer
+  over one layer: bf16 outputs of O(1). Both sides round at the same points
+  but sum in another order, so a value can land one bf16 step (2^-8
+  relative) apart: atol = rtol = 1e-2.
 - prefix_projector: f32 out of f32 sums over 256 products: 1e-4 / 1e-4.
 - lm_head: f32 logits and statistics out of f32 sums over 768 products of
   bf16 values: 1e-4 / 1e-4 (l: rtol 1e-4).
+- decode_layer over all 12 layers in bf16: a value one bf16 step apart after
+  one layer moves the next layer's LayerNorm, products and softmax, and the
+  steps cascade through the residual stream. Emulated on a CPU (the plain
+  step against itself with float64 in place of f32 sums, the inputs of
+  ``decode_layer_case``) the cascade reaches 0.08 on values up to 6.5, over
+  the elementwise bound; no summation order meets it. So the 12-layer bf16
+  step is held to 5e-2 of the largest plain value (``atol_of_max``: the
+  bound chip_smoke.py holds bf16 to against f32 through 12 layers), beside
+  the elementwise 1e-2 / 1e-2 over one layer and 1e-4 / 1e-4 for all 12
+  layers in f32 (the same emulation: 3.7e-6), which checks the layer loop,
+  the barriers and the cache addressing of every layer.
 """
 from __future__ import annotations
 
 import statistics
 from dataclasses import asdict, dataclass
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from video_caption_tpu_torch.ops import beam_attention as ba
+from video_caption_tpu_torch.ops import decode_attention as da
+from video_caption_tpu_torch.ops import decode_layer as dl
 from video_caption_tpu_torch.ops import encoder_attention as ea
 from video_caption_tpu_torch.ops import lm_head as lmh
 from video_caption_tpu_torch.ops import prefix_projector as pp
@@ -43,14 +64,26 @@ KERNELS = {
                 "video_caption_tpu/ops/pallas/lm_head.py:134", lmh),
     "beam_attention": ("cuda", "video_caption_tpu_torch/ops/csrc/beam_attention.cu",
                        "video_caption_tpu/ops/pallas/beam_attention.py:215", ba),
+    "decode_attention": ("cuda", "video_caption_tpu_torch/ops/csrc/decode_attention.cu",
+                         "video_caption_tpu/ops/pallas/decode_attention.py:45", da),
+    "decode_layer": ("cuda", "video_caption_tpu_torch/ops/csrc/decode_layer.cu",
+                     "video_caption_tpu/ops/pallas/decode_layer.py:153", dl),
 }
+DEFAULT_PATH = ("encoder_attention", "prefix_projector", "lm_head", "beam_attention")
+"""The kernels of the default configuration; decode_attention and
+decode_layer run only with their compile switches."""
 
 TOLERANCES = {
     "encoder_attention": (1e-2, 1e-2),
     "prefix_projector": (1e-4, 1e-4),
     "lm_head": (1e-4, 1e-4),
     "beam_attention": (1e-2, 1e-2),
+    "decode_attention": (1e-2, 1e-2),
+    "decode_layer": (1e-2, 1e-2),
 }
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 @dataclass
@@ -60,12 +93,30 @@ class CheckResult:
     max_abs_err: float
     atol: float
     rtol: float
+    atol_of_max: bool
     ok: bool
     ms: float
     plain_ms: float
+    library_ms: Optional[float]
+    bytes: int
+    flops: int
+    bound_ms: float
+    bound_by: str
 
     def as_dict(self) -> dict:
         return asdict(self)
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_: int, flops: int, dtype: torch.dtype) -> tuple:
+    """(least ms, "bytes" or "operations") for moving ``bytes_`` and doing
+    ``flops`` operations on operands of ``dtype`` on one H100."""
+    by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def median_ms(fn: Callable[[], object], runs: int = 25, warmup: int = 3) -> float:
@@ -83,8 +134,10 @@ def median_ms(fn: Callable[[], object], runs: int = 25, warmup: int = 3) -> floa
     return statistics.median(times)
 
 
-def _compare(name: str, got, want) -> tuple:
-    atol, rtol = TOLERANCES[name]
+def _compare(got, want, atol: float, rtol: float, atol_of_max: bool) -> tuple:
+    """(largest |got - want|, whether every element is within atol + rtol *
+    |want|; with atol_of_max, atol counts in units of max |want| of its
+    tensor)."""
     errs, ok = [], True
     for g, w in zip(got, want):
         g, w = g.float(), w.float()
@@ -92,16 +145,23 @@ def _compare(name: str, got, want) -> tuple:
         ok &= bool(torch.equal(torch.isfinite(g), finite))
         diff = (g - w).abs()[finite]
         errs.append(float(diff.max()) if diff.numel() else 0.0)
-        ok &= bool((diff <= atol + rtol * w.abs()[finite]).all())
+        a = atol * float(w.abs()[finite].max()) if atol_of_max and diff.numel() else atol
+        ok &= bool((diff <= a + rtol * w.abs()[finite]).all())
     return max(errs), ok
 
 
-def _result(name, shape, got, want, kernel_fn, plain_fn) -> CheckResult:
+def _result(name, shape, got, want, kernel_fn, plain_fn, work, library_fn=None,
+            tol=None) -> CheckResult:
+    """``work`` = (bytes, flops, operand dtype) of the function at this shape;
+    ``tol`` = (atol, rtol, atol_of_max) where it differs from TOLERANCES."""
     torch.cuda.synchronize()
-    err, ok = _compare(name, got, want)
-    atol, rtol = TOLERANCES[name]
-    return CheckResult(name, shape, err, atol, rtol, ok, median_ms(kernel_fn),
-                       median_ms(plain_fn))
+    atol, rtol, of_max = tol or (*TOLERANCES[name], False)
+    err, ok = _compare(got, want, atol, rtol, of_max)
+    bytes_, flops, dtype = work
+    bound_ms, bound_by = bound(bytes_, flops, dtype)
+    return CheckResult(name, shape, err, atol, rtol, of_max, ok, median_ms(kernel_fn),
+                       median_ms(plain_fn), median_ms(library_fn) if library_fn else None,
+                       bytes_, flops, bound_ms, bound_by)
 
 
 def _gen(device, seed):
@@ -114,9 +174,12 @@ def check_encoder_attention(frames: int, device="cuda", seq: int = 197, heads: i
     qkv = torch.randn((frames, seq, 3 * heads * 64), generator=g, device=device).bfloat16()
     got = ea.encoder_attention(qkv, heads)
     want = ea.encoder_attention_ref(qkv, heads)
+    q, k, v = qkv.view(frames, seq, 3, heads, 64).permute(2, 0, 3, 1, 4)
+    work = (nbytes(qkv, got), 4 * frames * heads * seq * seq * 64, qkv.dtype)
     return _result("encoder_attention", f"qkv[{frames},{seq},{3 * heads * 64}] bf16",
                    [got], [want], lambda: ea.encoder_attention(qkv, heads),
-                   lambda: ea.encoder_attention_ref(qkv, heads))
+                   lambda: ea.encoder_attention_ref(qkv, heads), work,
+                   lambda: F.scaled_dot_product_attention(q, k, v))
 
 
 def check_prefix_projector(rows: int, device="cuda", din: int = 256, dout: int = 3072,
@@ -127,9 +190,12 @@ def check_prefix_projector(rows: int, device="cuda", din: int = 256, dout: int =
     b = (torch.randn((dout,), generator=g, device=device) * 0.02).bfloat16()
     got = pp.prefix_project(x, w, b)
     want = pp.prefix_project_ref(x, w, b)
+    w32, b32 = w.float(), b.float()      # addmm takes one dtype: upcast outside the timing
+    work = (nbytes(x, w, b, got), 2 * rows * din * dout, x.dtype)
     return _result("prefix_projector", f"x[{rows},{din}] f32 @ w[{din},{dout}] bf16",
                    [got], [want], lambda: pp.prefix_project(x, w, b),
-                   lambda: pp.prefix_project_ref(x, w, b))
+                   lambda: pp.prefix_project_ref(x, w, b), work,
+                   lambda: torch.addmm(b32, x, w32))
 
 
 def check_lm_head(rows: int, device="cuda", h: int = 768, vocab: int = 50257,
@@ -141,9 +207,11 @@ def check_lm_head(rows: int, device="cuda", h: int = 768, vocab: int = 50257,
     w[:, vocab:] = 0
     got = lmh.lm_head_stats(x, w, vocab)
     want = lmh.lm_head_stats_ref(x, w, vocab)
+    work = (nbytes(x, w, *got), 2 * rows * h * vp, x.dtype)
     return _result("lm_head", f"x[{rows},{h}] @ wte_t[{h},{vp}] bf16, vocab {vocab}",
                    got, want, lambda: lmh.lm_head_stats(x, w, vocab),
-                   lambda: lmh.lm_head_stats_ref(x, w, vocab))
+                   lambda: lmh.lm_head_stats_ref(x, w, vocab), work,
+                   lambda: torch.matmul(x, w))      # the logits only, no statistics
 
 
 def check_beam_attention(videos: int, beams: int, prefill: int, steps: int, t: int,
@@ -161,14 +229,100 @@ def check_beam_attention(videos: int, beams: int, prefill: int, steps: int, t: i
     args = (q, gkv, pk, pv, valid, anc, t, beams, heads)
     got = ba.beam_attention(*args)
     want = ba.beam_attention_ref(*args)
+    # what this input needs: the visible prefill rows of each video and the
+    # distinct generated (step, writer row) columns the ancestry reaches
+    vis = valid.sum(dim=1).repeat_interleave(beams)                     # [R]
+    gen_cols = torch.unique(anc[:, :t + 1].long()
+                            + torch.arange(t + 1, device=device) * r).numel()
+    bytes_ = (r * h + 2 * h * (int(valid.sum()) + gen_cols)) * q.element_size() \
+        + nbytes(valid, anc[:, :t + 1], got)
+    work = (bytes_, 4 * h * int((vis + t + 1).sum()), q.dtype)
     return _result("beam_attention", f"R={r} (B={videos},K={beams}) S0={prefill} N={steps} t={t} bf16",
                    [got], [want], lambda: ba.beam_attention(*args),
-                   lambda: ba.beam_attention_ref(*args))
+                   lambda: ba.beam_attention_ref(*args), work)
+
+
+def check_decode_attention(batch: int, length: int, device="cuda", heads: int = 12,
+                           seed: int = 4) -> CheckResult:
+    """One layer of the sampled decode step: q a slice of the fused QKV
+    output, K and V strided views of one layer of the interleaved
+    [B, L, 2, nh, hd] cache; the last quarter of the columns not yet written
+    and the first row left-padded."""
+    g = _gen(device, seed)
+    h = heads * 64
+    qkv = torch.randn((batch, 3, heads, 64), generator=g, device=device).bfloat16()
+    kv = torch.randn((batch, length, 2, heads, 64), generator=g, device=device).bfloat16()
+    q, k, v = qkv[:, 0], kv[:, :, 0], kv[:, :, 1]
+    valid = torch.ones((batch, length), dtype=torch.int32, device=device)
+    valid[:, length - length // 4:] = 0
+    valid[0, :3] = 0
+    got = da.decode_attention(q, k, v, valid)
+    want = da.decode_attention_ref(q, k, v, valid)
+    live = int(valid.sum())
+    work = (nbytes(q, valid, got) + 2 * live * h * kv.element_size(), 4 * h * live, q.dtype)
+    mask = (valid > 0)[:, None, None, :]
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    return _result("decode_attention", f"B={batch} L={length} {heads}x64 bf16 (strided K/V)",
+                   [got], [want], lambda: da.decode_attention(q, k, v, valid),
+                   lambda: da.decode_attention_ref(q, k, v, valid), work,
+                   lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+
+
+def decode_layer_case(batch: int, device="cuda", n_layer: int = 12, h: int = 768,
+                      max_len: int = 64, offset: int = 40, dtype=torch.bfloat16, seed: int = 5):
+    """Seeded inputs of one fused decode step at GPT-2 124M widths, with
+    the weights as prepare_decode_params leaves them (LN f32, the rest in
+    ``dtype``): (x, kvf, valid, blocks)."""
+    g = _gen(device, seed)
+
+    def nrm(*shape, std=0.02):
+        return torch.randn(shape, generator=g, device=device) * std
+
+    blocks = {"ln1_scale": 1 + nrm(n_layer, h, std=0.1), "ln1_bias": nrm(n_layer, h, std=0.1),
+              "ln2_scale": 1 + nrm(n_layer, h, std=0.1), "ln2_bias": nrm(n_layer, h, std=0.1)}
+    for name, shape in (("attn_w", (h, 3 * h)), ("attn_b", (3 * h,)), ("proj_w", (h, h)),
+                        ("proj_b", (h,)), ("fc_w", (h, 4 * h)), ("fc_b", (4 * h,)),
+                        ("out_w", (4 * h, h)), ("out_b", (h,))):
+        blocks[name] = nrm(n_layer, *shape).to(dtype)
+    x = nrm(batch, h, std=1.0).to(dtype)
+    kvf = nrm(n_layer, max_len, batch, 2 * h, std=1.0).to(dtype)
+    valid = torch.zeros((batch, max_len), dtype=torch.int32, device=device)
+    valid[:, :offset + 1] = 1
+    valid[0, :3] = 0                      # a left-padded first row
+    return x, kvf, valid, blocks
+
+
+def check_decode_layer(batch: int, device="cuda", n_layer: int = 12, h: int = 768,
+                       max_len: int = 64, offset: int = 40,
+                       dtype=torch.bfloat16) -> CheckResult:
+    x, kvf, valid, blocks = decode_layer_case(batch, device, n_layer, h, max_len, offset, dtype)
+    heads = h // 64
+    kvf_kernel, kvf_plain = kvf.clone(), kvf.clone()
+    got, _ = dl.gpt2_decode_step(x, kvf_kernel, valid, offset, blocks, heads)
+    want, _ = dl.gpt2_decode_step_ref(x, kvf_plain, valid, offset, blocks, heads)
+    live = int(valid[:, :offset + 1].sum())
+    row = batch * 2 * h * kvf.element_size()
+    bytes_ = nbytes(x, got, valid, *blocks.values()) \
+        + n_layer * (2 * h * kvf.element_size() * live + row)   # visible K/V read, new row written
+    flops = n_layer * (2 * batch * 12 * h * h + 4 * h * live)
+    if dtype == torch.float32:
+        tol = (1e-4, 1e-4, False)
+    else:
+        tol = (5e-2, 0.0, True) if n_layer > 1 else None
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    return _result("decode_layer",
+                   f"B={batch} {n_layer}x{h} max_len={max_len} offset={offset} {kind}",
+                   [got, kvf_kernel], [want, kvf_plain],
+                   lambda: dl.gpt2_decode_step(x, kvf_kernel, valid, offset, blocks, heads),
+                   lambda: dl.gpt2_decode_step_ref(x, kvf_plain, valid, offset, blocks, heads),
+                   (bytes_, flops, x.dtype), tol=tol)
 
 
 def main_path_checks(device="cuda") -> List[CheckResult]:
     """Every kernel at the main path's shapes; the first check of each kernel
-    is the single-request shape whose times chip_smoke.py reports."""
+    is the single-request shape whose times chip_smoke.py reports (for the
+    two fused-decode kernels, the single-request ``natural`` group: B=1, a
+    64-column cache)."""
     out = []
     out += [check_encoder_attention(n, device) for n in (16, 128)]
     out += [check_prefix_projector(b, device) for b in (1, 8)]
@@ -176,4 +330,8 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     for videos, beams, prefill, steps in ((2, 3, 48, 24), (1, 4, 48, 40)):
         out += [check_beam_attention(videos, beams, prefill, steps, t, device)
                 for t in (steps // 2, 0, steps - 1)]
+    out += [check_decode_attention(b, 64, device) for b in (1, 64)]
+    out += [check_decode_layer(b, device) for b in (1, 8)]
+    out += [check_decode_layer(b, device, n_layer=1) for b in (1, 8)]
+    out += [check_decode_layer(8, device, dtype=torch.float32)]
     return out
