@@ -6,12 +6,14 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 
 1. environment: requires CUDA; prints the torch/CUDA versions and the card's
    name and power limit (nvidia-smi);
-2. build: compiles the six hand-written kernels (ops/csrc/*.cu), one nvcc
+2. build: compiles the seven hand-written kernels (ops/csrc/*.cu), one nvcc
    per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   main path's shapes (error beside its tolerance, median times of the
-   kernel, the plain version and, where there is one, a single PyTorch call
-   of the same function, beside the bound);
+   main path's and the trainers' shapes (error beside its tolerance, median
+   times of the kernel, the plain version and, where there is one, a single
+   PyTorch call of the same function, beside the bound); then the input
+   gradients of the three differentiable kernels (kernel forward,
+   closed-form backward) against autograd through their plain versions;
 4. engine: a full-width ViT-B/16 + GPT-2 (124M) engine with seeded random
    bf16 weights, 16 frames of 224x224 JPEGs per request: a warm-up request,
    then timed requests through ``InferenceEngine.infer`` with the core
@@ -26,7 +28,23 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 6. reference: the prefix and the prefill logits against the plain path in
    f32 on the CPU on a 2-frame input, and for each fused-decode engine the
    logits of 4 K=1 decode steps against the same steps in f32 on the CPU;
-7. the kernel table as one JSON line, the nvidia-smi line, and last
+7. mapper trainer: ``cli/train_caption_mapper.main`` on a synthetic
+   annotations file over the same JPEG directories, full-width ViT-B/16 +
+   GPT-2 with seeded random weights, bf16 compute, 4 videos x 8 frames, 5
+   steps (each synchronised and timed), then a validation pass and a
+   best-val checkpoint; the losses must be finite, the mapper must move and
+   every other weight stay bit-equal (their rate is 0), and the step must
+   launch encoder_attention (frozen forward) and prefix_projector;
+8. joint step: ``training/loop.run_training`` with the stage-1 alignment
+   loss of ``cli/train_full.py --model vit`` and ``adamw(1e-4)``, the ViT
+   with ``pool="gap"``, f32 and remat, 4 videos x 8 frames, 5 steps; the step
+   must launch fused_pool once and encoder_attention twice per layer
+   (forward and remat recompute); then the loss and global gradient norm of
+   one step at 1 video x 2 frames on the card against the same step in f32
+   on the CPU (plain versions);
+9. the kernel table as one JSON line (launches of each kernel's path: the
+   default engine's requests, each fused-decode engine's, the joint steps'
+   for fused_pool), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 With ``--report PATH`` every check, latency and result is also written to
@@ -35,8 +53,10 @@ PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -58,6 +78,14 @@ SWITCHES = {"decode_attention": "use_pallas_decode_attention",
 # bf16 on the card vs f32 on the CPU through 12 ViT layers (or 12 GPT-2
 # layers): the deployment bf16-vs-f32 bound, relative to the largest value
 REL_TOL = 5e-2
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 4, 8, 5
+# f32 on the card (kernels) vs f32 on the CPU (plain versions): one step's
+# loss and global gradient norm through 12 ViT layers and back
+TRAIN_REL_TOL = 1e-3
+CAPTIONS = ("a man is riding a horse", "a woman is slicing a tomato",
+            "two dogs are playing in the snow", "a child is playing the guitar",
+            "a cat is sleeping on a sofa", "a car is driving down the road",
+            "people are dancing on a stage", "a man is cooking in a kitchen")
 
 
 def log(msg: str) -> None:
@@ -121,6 +149,18 @@ def main() -> int:
     bad = [c for c in checks if not c.ok]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    backward = selfcheck.backward_checks()
+    report["backward_checks"] = [c.as_dict() for c in backward]
+    for c in backward:
+        lib = "none" if c.library_ms is None else f"{c.library_ms:.4f} ms"
+        log(f"backward {c.name:18s} {c.shape:36s} max_abs_err {c.max_abs_err:.3e} of max "
+            f"{c.max_abs_grad:.3e} (tol {c.rel_tol:g} x max) {'ok' if c.ok else 'FAIL'} "
+            f"fwd+bwd {c.ms:.4f} ms plain fwd+bwd {c.plain_ms:.4f} ms bwd alone "
+            f"{c.bwd_ms:.4f} ms library fwd+bwd {lib}")
+    bad = [c for c in backward if not c.ok]
+    if bad:
+        raise AssertionError(f"backward passes disagree with autograd of the plain versions: "
+                             f"{bad}")
 
     # ---- 4. engine on the main path
     with tempfile.TemporaryDirectory() as tmp:
@@ -234,9 +274,20 @@ def main() -> int:
                 raise AssertionError(f"the {SWITCHES[kernel]} decode steps disagree with the "
                                      "f32 plain path")
 
-    # ---- 7. summary: launches of each kernel's path (the default engine's
-    # requests; the fused-decode kernels', their engines' requests); times
-    # and bound of the first check of each kernel, its single-request shape
+        # ---- 7. and 8. the two trainers
+        ann = Path(tmp) / "annotations.json"
+        ann.write_text(json.dumps([
+            {"video_id": f"video{v}", "frames_dir": d,
+             "captions": [CAPTIONS[(v + i) % len(CAPTIONS)] for i in range(len(CAPTIONS))]}
+            for v, d in enumerate(dirs)]))
+        report["mapper_trainer"] = _mapper_trainer_phase(Path(tmp), ann)
+        report["joint_step"] = _joint_step_phase(Path(tmp), ann)
+        launches["fused_pool"] = report["joint_step"]["launches"]["fused_pool"]
+
+    # ---- 9. summary: launches of each kernel's path (the default engine's
+    # requests; the fused-decode kernels', their engines' requests;
+    # fused_pool's, the joint steps'); times and bound of the first check of
+    # each kernel, its single-request (fused_pool: joint-step) shape
     by_name = {}
     for c in checks:
         entry = by_name.setdefault(c.name, {"max_abs_err": 0.0, "first": c})
@@ -264,11 +315,7 @@ def _timed_requests(engine, dirs, count):
     """(latencies s, results, launches of every kernel) of ``count``
     sequential requests; the counts are set to 0 just before and read just
     after."""
-    from video_caption_tpu_torch.ops import selfcheck
-
-    modules = {name: spec[3] for name, spec in selfcheck.KERNELS.items()}
-    for mod in modules.values():
-        mod.launches = 0
+    _reset_kernel_counts()
     latencies, results = [], []
     for i in range(count):
         t0 = time.perf_counter()
@@ -276,7 +323,189 @@ def _timed_requests(engine, dirs, count):
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
         results.append(res.to_api_dict())
-    return latencies, results, {name: mod.launches for name, mod in modules.items()}
+    return latencies, results, _kernel_counts()
+
+
+def _kernel_counts():
+    from video_caption_tpu_torch.ops import selfcheck
+
+    return {name: spec[3].launches for name, spec in selfcheck.KERNELS.items()}
+
+
+def _reset_kernel_counts():
+    from video_caption_tpu_torch.ops import selfcheck
+
+    for spec in selfcheck.KERNELS.values():
+        spec[3].launches = 0
+
+
+class _StepTimer:
+    """Wraps a step function: synchronises after each call and keeps its end
+    time and the kernels' counts there."""
+
+    def __init__(self, fn):
+        self.fn, self.ends, self.counts = fn, [], []
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.ends.append(time.perf_counter())
+        self.counts.append(_kernel_counts())
+        return out
+
+    def summary(self, batch):
+        """Median ms of steps 2.. (end to end, the next batch's wait
+        included), samples/s, and launches per step over those steps."""
+        gaps = [(b - a) * 1000 for a, b in zip(self.ends, self.ends[1:])]
+        ms = statistics.median(gaps)
+        n = len(gaps)
+        per_step = {k: (self.counts[-1][k] - self.counts[0][k]) / n for k in self.counts[0]}
+        return {"step_ms": gaps, "median_step_ms": ms, "samples_per_s": batch * 1000 / ms,
+                "launches_per_step": per_step}
+
+
+def _losses(events: Path):
+    with events.open() as fh:
+        return [float(r["loss"]) for r in csv.DictReader(fh)]
+
+
+def _mapper_trainer_phase(root: Path, ann: Path) -> dict:
+    """Phase 7: the mapper trainer through its CLI."""
+    from video_caption_tpu_torch.cli import train_caption_mapper
+    from video_caption_tpu_torch.config import default_inference_config
+    from video_caption_tpu_torch.engine import load_params, model_config_from_inference
+    from video_caption_tpu_torch.ops import selfcheck
+    from video_caption_tpu_torch.training import mapper_trainer as mt
+    from video_caption_tpu_torch.training.optim import leaves
+
+    run_step = mt.MapperTrainer.run_step
+    timer, trainers = _StepTimer(run_step), []
+
+    def timed_step(self, batch, sync=True):
+        trainers[:] = [self]
+        return timer(self, batch, sync)
+
+    out_dir, ckpt = root / "mapper_run", root / "mapper_ckpt"
+    _reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mt.MapperTrainer.run_step = timed_step
+    try:
+        rc = train_caption_mapper.main([
+            "--ann_path", str(ann), "--val_ann_path", str(ann),
+            "--batch_size", str(TRAIN_BATCH), "--num_frame", str(TRAIN_FRAMES),
+            "--image_size", str(IMAGE_SIZE), "--max_len", "32",
+            "--max_steps", str(TRAIN_STEPS), "--out_dir", str(out_dir),
+            "--ckpt_path", str(ckpt), "--device", "cuda"])
+    finally:
+        mt.MapperTrainer.run_step = run_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _kernel_counts()
+    losses = _losses(out_dir / "events.csv")
+    stats = timer.summary(TRAIN_BATCH)
+    # the same seeded init the CLI started from: the mapper moved, every
+    # other leaf (rate 0) is bit-equal
+    inf_cfg = default_inference_config(num_frames=TRAIN_FRAMES, image_size=IMAGE_SIZE)
+    start = dict(leaves(load_params(inf_cfg, model_config_from_inference(inf_cfg), seed=0,
+                                    device="cuda")))
+    moved = [p for p, t in leaves(trainers[0].params) if not torch.equal(t, start[p])]
+    log(f"mapper trainer: rc {rc}, {len(losses)} steps in {wall:.1f} s (CLI, data, validation and "
+        f"checkpoint included); steps 2-{TRAIN_STEPS} "
+        f"{[round(x, 1) for x in stats['step_ms']]} ms, median {stats['median_step_ms']:.1f} ms/step, "
+        f"{stats['samples_per_s']:.2f} samples/s; peak device memory {peak / 2**20:.0f} MiB")
+    log(f"mapper trainer: losses {losses}; leaves moved {moved}; launches {launches}, per step "
+        f"{stats['launches_per_step']}; checkpoint {(ckpt / 'model.pt').is_file()}")
+    _require_launches(launches, selfcheck.MAPPER_TRAINING_PATH, "the mapper trainer")
+    if not (rc == 0 and len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))):
+        raise AssertionError(f"the mapper trainer did not take {TRAIN_STEPS} finite steps")
+    if sorted(moved) != ["/mapper/b", "/mapper/w"]:
+        raise AssertionError(f"the mapper trainer must move the mapper and nothing else: {moved}")
+    if not (ckpt / "model.pt").is_file():
+        raise AssertionError("the mapper trainer wrote no best-val checkpoint")
+    return {"losses": losses, "wall_s": wall, "peak_bytes": peak, "launches": launches,
+            "moved": moved, **stats}
+
+
+def _joint_step_phase(root: Path, ann: Path) -> dict:
+    """Phase 8: the stage-1 joint step with pool="gap", and one step against
+    the CPU."""
+    from video_caption_tpu_torch.cli.train_full import align_loss
+    from video_caption_tpu_torch.data import build_dataloader
+    from video_caption_tpu_torch.decode.tokenizer import get_tokenizer
+    from video_caption_tpu_torch.models import align as al
+    from video_caption_tpu_torch.models import vit as vt
+    from video_caption_tpu_torch.ops import selfcheck
+    from video_caption_tpu_torch.training import loop
+    from video_caption_tpu_torch.training.optim import adamw, global_norm, leaves
+
+    tokenizer = get_tokenizer()
+    cfg = al.AlignConfig(vit=vt.ViTConfig(pool="gap", dtype=torch.float32, remat=True),
+                         temporal_mode="mean", vocab_size=tokenizer.vocab_size)
+    params = al.init_align_params(torch.Generator(device="cuda").manual_seed(SEED), cfg, "cuda")
+    start = {p: t.clone() for p, t in leaves(params)}
+    loader = build_dataloader(str(ann), tokenizer, batch_size=TRAIN_BATCH, max_len=16,
+                              num_frame=TRAIN_FRAMES, image_size=IMAGE_SIZE, num_workers=1)
+    loss_fn = align_loss(cfg)
+
+    # one step at 1 video x 2 frames: kernels on the card against the plain
+    # versions on the CPU, f32 both, the same initial parameters
+    first = next(iter(build_dataloader(str(ann), tokenizer, batch_size=1, max_len=16,
+                                       num_frame=2, image_size=IMAGE_SIZE, shuffle=False)))
+    small = {k: v for k, v in first.items() if k != "video_id"}
+    loss_gpu, grads_gpu = loop.value_and_grad(loss_fn, params, loop.to_device(small, "cuda"))
+    cpu_params = _f32_cpu(params)
+    loss_cpu, grads_cpu = loop.value_and_grad(loss_fn, cpu_params, loop.to_device(small, "cpu"))
+    norm_gpu = float(global_norm(list(grads_gpu.values())))
+    norm_cpu = float(global_norm(list(grads_cpu.values())))
+    loss_err = abs(float(loss_gpu) - float(loss_cpu)) / abs(float(loss_cpu))
+    norm_err = abs(norm_gpu - norm_cpu) / norm_cpu
+    log(f"joint step, 1 video x 2 frames: loss {float(loss_gpu):.7f} (card) vs "
+        f"{float(loss_cpu):.7f} (CPU), rel err {loss_err:.3e}; gradient norm {norm_gpu:.7f} vs "
+        f"{norm_cpu:.7f}, rel err {norm_err:.3e} (bound {TRAIN_REL_TOL:g})")
+    if not (loss_err < TRAIN_REL_TOL and norm_err < TRAIN_REL_TOL and math.isfinite(norm_gpu)):
+        raise AssertionError("the joint step on the card disagrees with the f32 CPU path")
+
+    timer = _StepTimer(loop.sgd_step)
+    out_dir = root / "joint_run"
+    _reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop.sgd_step = timer
+    try:
+        result = loop.run_training(
+            params, loss_fn, adamw(params, 1e-4), loader,
+            cfg=loop.LoopConfig(max_steps=TRAIN_STEPS, out_dir=str(out_dir)),
+            batch_transform=lambda b: {k: v for k, v in b.items() if k != "video_id"})
+    finally:
+        loop.sgd_step = timer.fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _kernel_counts()
+    losses = _losses(out_dir / "events.csv")
+    stats = timer.summary(TRAIN_BATCH)
+    moved = sum(not torch.equal(t, start[p]) for p, t in leaves(params))
+    log(f"joint step (gap, f32, remat): {result['steps']} steps in {wall:.1f} s; steps "
+        f"2-{TRAIN_STEPS} {[round(x, 1) for x in stats['step_ms']]} ms, median "
+        f"{stats['median_step_ms']:.1f} ms/step, {stats['samples_per_s']:.2f} samples/s; peak "
+        f"device memory {peak / 2**20:.0f} MiB")
+    log(f"joint step: losses {losses}; {moved} of {len(start)} leaves moved; launches "
+        f"{launches}, per step {stats['launches_per_step']}")
+    _require_launches(launches, selfcheck.JOINT_TRAINING_PATH, "the joint step")
+    per_step = stats["launches_per_step"]
+    if per_step["fused_pool"] != 1 or per_step["encoder_attention"] != 2 * cfg.vit.depth:
+        raise AssertionError(f"a joint step must launch fused_pool once and encoder_attention "
+                             f"twice per layer (forward, remat recompute): {per_step}")
+    if not (len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+            and moved == len(start)):
+        raise AssertionError("the joint step did not take finite steps that move every leaf")
+    return {"losses": losses, "wall_s": wall, "peak_bytes": peak, "launches": launches,
+            "one_step": {"loss_gpu": float(loss_gpu), "loss_cpu": float(loss_cpu),
+                         "loss_rel_err": loss_err, "grad_norm_gpu": norm_gpu,
+                         "grad_norm_cpu": norm_cpu, "grad_norm_rel_err": norm_err},
+            **stats}
 
 
 def _require_launches(launches, names, path):

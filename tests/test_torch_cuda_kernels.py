@@ -93,6 +93,34 @@ def test_decode_layer_writes_only_its_cache_row(cuda):
     assert not torch.equal(kvf[:, 17], before[:, 17])
 
 
+@pytest.mark.parametrize("batch,frames,mode,dtype", [
+    (4, 8, "gap", torch.float32), (16, 8, "gap", torch.bfloat16), (2, 8, "cls", torch.bfloat16),
+    (1, 1, "gap", torch.float32), (3, 5, "cls", torch.float32)])
+def test_fused_pool_kernel(cuda, batch, frames, mode, dtype):
+    _assert_ok(selfcheck.check_fused_pool(batch, frames, mode, dtype, cuda))
+
+
+def test_fused_pool_kernel_odd_width(cuda):
+    """H not a multiple of the 256 columns a block owns, nor of 128."""
+    _assert_ok(selfcheck.check_fused_pool(3, 2, "gap", torch.float32, cuda, seq=7, h=300))
+
+
+@pytest.mark.parametrize("frames,dtype", [(32, torch.float32), (32, torch.bfloat16),
+                                          (3, torch.float32)])
+def test_encoder_attention_backward(cuda, frames, dtype):
+    _assert_ok(selfcheck.check_encoder_attention_backward(frames, dtype, cuda))
+
+
+@pytest.mark.parametrize("mode", ["gap", "cls"])
+def test_fused_pool_backward(cuda, mode):
+    _assert_ok(selfcheck.check_fused_pool_backward(4, 8, mode, cuda))
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+def test_prefix_projector_backward(cuda, rows):
+    _assert_ok(selfcheck.check_prefix_projector_backward(rows, cuda))
+
+
 def test_kernel_launch_counters(cuda):
     from video_caption_tpu_torch.ops import encoder_attention as ea
 
@@ -111,6 +139,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ea.encoder_attention(torch.zeros(1, 5, 3 * 96, device=cuda), 2)   # head dim 48
     with pytest.raises(ValueError):
         lmh.lm_head_stats(torch.zeros(2, 8, device=cuda), torch.zeros(8, 200, device=cuda), 200)
+
+
+def test_fused_pool_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from video_caption_tpu_torch.ops import fused_pool as fpl
+
+    x = torch.zeros(6, 5, 8, device=cuda)
+    with pytest.raises(ValueError):
+        fpl.fused_pool_temporal(x, 2, 2, "gap")                       # 6 rows are not 2 x 2
+    with pytest.raises(ValueError):
+        fpl.fused_pool_temporal(x, 2, 3, "max")
+    with pytest.raises(ValueError):
+        fpl.fused_pool_temporal(x.transpose(1, 2), 2, 3, "gap")       # not contiguous
+    with pytest.raises(TypeError):
+        fpl.fused_pool_temporal(x.half(), 2, 3, "gap")
 
 
 def test_fused_decode_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -1,6 +1,7 @@
 """The port imports nothing of the JAX package and no JAX, and its own copies
 of the reference's JAX-free modules (config, datatypes, tokenizer, presets,
-post-processing, frame loading) behave as the originals do."""
+post-processing, frame loading, the training data loader) behave as the
+originals do."""
 import dataclasses
 import json
 import subprocess
@@ -13,12 +14,14 @@ from PIL import Image
 
 from video_caption_tpu import config as jconfig
 from video_caption_tpu import datatypes as jdatatypes
+from video_caption_tpu.data import data_loader as jdata
 from video_caption_tpu.decode import presets as jpresets
 from video_caption_tpu.decode import tokenizer as jtokenizer
 from video_caption_tpu.postprocessing import candidate_ranker as jranker
 from video_caption_tpu.postprocessing import text_cleaner as jcleaner
 from video_caption_tpu.preprocessing import frame_loader as jframes
 from video_caption_tpu_torch import config, datatypes
+from video_caption_tpu_torch.data import data_loader
 from video_caption_tpu_torch.decode import presets, tokenizer
 from video_caption_tpu_torch.postprocessing import candidate_ranker, text_cleaner
 from video_caption_tpu_torch.preprocessing import frame_loader
@@ -37,6 +40,11 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "for name in ('training.loop', 'training.mapper_trainer', 'training.optim',\n"
+        "             'training.checkpoint', 'models.align', 'models.toy', 'ops.fused_pool',\n"
+        "             'data.data_loader', 'cli.train_caption_mapper', 'cli.train_full',\n"
+        "             'cli.train', 'cli.train_decoder_only', 'cli.profile_training'):\n"
+        "    assert p.__name__ + '.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'video_caption_tpu'))\n"
         "assert not bad, bad\n"
@@ -112,3 +120,34 @@ def test_frame_loader_copy_matches(tmp_path):
     assert frame_loader.sample_frame_paths(files, 3) == jframes.sample_frame_paths(files, 3)
     np.testing.assert_array_equal(frame_loader.load_image_u8(files[0], 32),
                                   jframes.load_image_u8(files[0], 32))
+
+
+def _frame_dirs(root, videos, frames, seed):
+    rng = np.random.RandomState(seed)
+    records = []
+    for v in range(videos):
+        d = root / f"video{v}"
+        d.mkdir()
+        for i in range(frames + v):          # frame counts below and above num_frame
+            Image.fromarray(rng.randint(0, 255, (40, 48, 3), np.uint8)).save(
+                d / f"frame_{i:05d}.jpg")
+        records.append({"video_id": f"v{v}", "frames_dir": str(d),
+                        "captions": [f"a man is riding horse {v}", "two dogs play in the snow"]})
+    records.append({"video_id": "empty", "frames_dir": str(root / "missing"), "captions": ["x"]})
+    return records
+
+
+@pytest.mark.parametrize("uint8_pixels,prefetch", [(False, 0), (True, 2)])
+def test_data_loader_copy_yields_the_same_batches(tmp_path, uint8_pixels, prefetch):
+    ann = tmp_path / "ann.json"
+    ann.write_text(json.dumps(_frame_dirs(tmp_path, 3, 3, seed=5)))
+    kw = dict(batch_size=2, max_len=12, num_frame=4, image_size=32, uint8_pixels=uint8_pixels,
+              num_wokers=prefetch)
+    port = list(data_loader.build_dataloader(str(ann), tokenizer.get_tokenizer(), **kw))
+    ref = list(jdata.build_dataloader(str(ann), jtokenizer.get_tokenizer(), **kw))
+    assert len(port) == len(ref) == 3
+    for a, b in zip(port, ref):
+        assert a.keys() == b.keys() and a["video_id"] == b["video_id"]
+        for key in ("video", "caption_ids", "attention_mask"):
+            assert a[key].dtype == b[key].dtype
+            np.testing.assert_array_equal(a[key], b[key])

@@ -9,6 +9,7 @@ import torch
 
 from video_caption_tpu.models import caption_model as jcm
 from video_caption_tpu.models import gpt2 as jg2
+from video_caption_tpu.models import vit as jvt
 from video_caption_tpu_torch.models import caption_model as cm
 from video_caption_tpu_torch.models import gpt2 as g2
 from video_caption_tpu_torch.models import vit as vt
@@ -82,13 +83,20 @@ def test_adapters_match_jax(tiny_cfg, video_u8):
     assert init["proj"]["w"].shape == (16, 8) and init["proj_mlp"]["fc1"]["w"].shape == (8, 12)
 
 
-def test_gap_pool_is_not_ported(both, video_u8):
-    _, tp, cfg = both
+def test_gap_pool_matches_jax(tiny_cfg, both, video_u8):
+    """pool="gap": the full token stream reaches the fused pool (its plain
+    version on the CPU; the JAX package's XLA path at H = 64)."""
     import dataclasses
 
+    jp, tp, cfg = both
     gap = dataclasses.replace(cfg.vit, pool="gap")
-    with pytest.raises(NotImplementedError, match="fused_pool"):
-        vt.vit_encode(tp["encoder"], torch.from_numpy(video_u8), gap)
+    jgap = dataclasses.replace(tiny_cfg.vit, pool="gap")
+    want = np.asarray(jvt.vit_encode(jp["encoder"], jnp.asarray(video_u8), jgap))
+    got = vt.vit_encode(tp["encoder"], torch.from_numpy(video_u8), gap).numpy()
+    assert got.shape == want.shape == (2, 16)
+    np.testing.assert_allclose(got, want, atol=ENCODER_ATOL)
+    cls = vt.vit_encode(tp["encoder"], torch.from_numpy(video_u8), cfg.vit).numpy()
+    assert not np.allclose(got, cls)
 
 
 def _prefill_inputs(h, seed=1):

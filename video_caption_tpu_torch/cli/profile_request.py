@@ -87,12 +87,19 @@ def stage_times(engine, frames_dir: str) -> dict:
 def device_profile(engine, frames_dir: str, trace: Path = None) -> dict:
     """Kernel count, device time, busy share and time by kernel name of one
     request under torch.profiler."""
+    return profile_call(lambda: engine.infer(frames_dir), trace)
+
+
+def profile_call(fn, trace: Path = None) -> dict:
+    """Kernel count, device time, busy share (the union of kernel intervals
+    over the profiled span) and time by kernel name of one synchronised
+    call of ``fn`` under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.infer(frames_dir)
+        fn()
         torch.cuda.synchronize()
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]

@@ -2,8 +2,9 @@
 prefix mapper + GPT-2 (counterpart of video_caption_tpu/models/caption_model.py).
 
 The mapper product runs through the prefix-projector kernel
-(ops/prefix_projector.py) on the GPU. ``compute_loss`` (training) and the
-packed 4:2:0 video input are still to port.
+(ops/prefix_projector.py) on the GPU. ``compute_loss`` is the teacher-forcing
+loss of the mapper trainer (training/mapper_trainer.py). The packed 4:2:0
+video input is still to port.
 """
 from __future__ import annotations
 
@@ -29,6 +30,10 @@ class CaptionModelConfig:
     proj_hidden: int = 0          # MLP adapter width (0 = identity)
     ln_scale: float = 0.6
     in_weight: float = 0.4
+    freeze_encoder: bool = False
+    """Training: the encoder (and its adapters) runs under ``no_grad``, the
+    counterpart of the JAX package's ``stop_gradient``; no backward pass is
+    built through it."""
 
     @property
     def mapper_out(self) -> int:
@@ -117,3 +122,30 @@ def build_decoder_inputs(params: Params, prefix: torch.Tensor, input_ids: torch.
     """concat(prefix_embeds, wte(input_ids))."""
     tok = params["decoder"]["wte"][input_ids.long()]
     return torch.cat([prefix.to(tok.dtype), tok], dim=1)
+
+
+def compute_loss(params: Params, video: torch.Tensor, input_ids: torch.Tensor,
+                 attn_mask: torch.Tensor, cfg: CaptionModelConfig,
+                 labels: torch.Tensor = None) -> torch.Tensor:
+    """Teacher-forcing loss: the prefix positions get attention 1 and label
+    -100, positions are ``cumsum(mask) - 1`` clamped at 0, caption padding
+    is ignored."""
+    b = video.shape[0]
+    if cfg.freeze_encoder:
+        with torch.no_grad():
+            emb = encode_video(params, video, cfg)
+        prefix = map_prefix(params, apply_prefix_norm(emb, cfg.ln_scale, cfg.in_weight), cfg)
+    else:
+        prefix = video_to_prefix(params, video, cfg)
+    p = prefix.shape[1]
+    embeds = build_decoder_inputs(params, prefix, input_ids, cfg)
+    dev = input_ids.device
+    full_mask = torch.cat([torch.ones((b, p), dtype=torch.int32, device=dev),
+                           attn_mask.to(torch.int32)], dim=1)
+    positions = (torch.cumsum(full_mask, dim=1) - 1).clamp(min=0)
+    logits = g2.gpt2_logits_nocache(params["decoder"], embeds, positions, full_mask, cfg.gpt2)
+    if labels is None:
+        labels = torch.where(attn_mask > 0, input_ids, -100)
+    full_labels = torch.cat([torch.full((b, p), -100, dtype=labels.dtype, device=dev), labels],
+                            dim=1)
+    return g2.lm_loss(logits, full_labels)

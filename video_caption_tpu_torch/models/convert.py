@@ -10,7 +10,11 @@ So moving weights between the packages moves arrays as they are:
 - ``load_reference_state`` reads the reference torch key space (timm ViT,
   HF GPT-2 Conv1D, tied LM head) that the JAX package's
   ``export_torch_state`` writes, so one ``{"model_state": ...}`` ``.pt`` file
-  loads into both packages.
+  loads into both packages;
+- ``export_torch_state`` writes the port's tree into that key space (the
+  checkpoints of training/checkpoint.py);
+- ``align_params_from_jax_numpy`` takes the JAX alignment model's tree
+  (models/align.py).
 """
 from __future__ import annotations
 
@@ -42,6 +46,13 @@ def params_from_jax_numpy(tree: Mapping, cfg: CaptionModelConfig, device,
         return t.to(device)
 
     return conv(tree)
+
+
+def align_params_from_jax_numpy(tree: Mapping, device, dtype: torch.dtype = None) -> Params:
+    """JAX alignment-model tree (``init_align_params``, numpy leaves) -> the
+    port's tree of tensors: the layouts are shared, so arrays move as they
+    are."""
+    return params_from_jax_numpy(tree, None, device, dtype)
 
 
 def params_to_numpy(params: Mapping) -> Dict[str, Any]:
@@ -119,6 +130,63 @@ def _hf_gpt2(state: Mapping, prefix: str, n_layer: int) -> Params:
         for ours, theirs in _GPT2_BLOCK_KEYS
     }
     return params
+
+
+def export_torch_state(params: Mapping, cfg: CaptionModelConfig) -> Dict[str, torch.Tensor]:
+    """The port's caption-model tree -> the reference state-dict key space
+    (timm ViT, HF GPT-2, mapper) as f32 CPU tensors: the inverse of
+    ``load_reference_state`` and the counterpart of the JAX package's
+    ``export_torch_state``, key for key. A Linear ``proj`` adapter has no
+    reference key and is left out with a warning."""
+    out: Dict[str, torch.Tensor] = {}
+    enc = params.get("encoder")
+    if enc:
+        p = cfg.vit.patch_size
+        pre = "encoder.backbone."
+        out[pre + "patch_embed.proj.weight"] = \
+            _t(enc["patch_embed"]["w"]).t().reshape(-1, cfg.vit.in_chans, p, p).contiguous()
+        out[pre + "patch_embed.proj.bias"] = _t(enc["patch_embed"]["b"])
+        out[pre + "cls_token"] = _t(enc["cls_token"])
+        out[pre + "pos_embed"] = _t(enc["pos_embed"])
+        out[pre + "norm.weight"] = _t(enc["norm_scale"])
+        out[pre + "norm.bias"] = _t(enc["norm_bias"])
+        blocks = {k: _t(v) for k, v in enc["blocks"].items()}
+        for i in range(cfg.vit.depth):
+            for ours, theirs, transpose in _VIT_BLOCK_KEYS:
+                v = blocks[ours][i]
+                v = v.t().contiguous() if transpose else v.contiguous()
+                out[f"{pre}blocks.{i}.{theirs}"] = v
+                # the reference encoder aliases its backbone's blocks, so its
+                # state dict holds each block tensor under both prefixes
+                out[f"encoder.blocks.{i}.{theirs}"] = v
+        if "head" in enc:
+            out["encoder.proj.weight"] = _t(enc["head"]["w"]).t().contiguous()
+            out["encoder.proj.bias"] = _t(enc["head"]["b"])
+    if "mapper" in params:
+        out["decoder.mapper.0.weight"] = _t(params["mapper"]["w"]).t().contiguous()
+        out["decoder.mapper.0.bias"] = _t(params["mapper"]["b"])
+    dec = params.get("decoder")
+    if dec:
+        pre = "decoder.model."
+        out[pre + "transformer.wte.weight"] = _t(dec["wte"])
+        out[pre + "transformer.wpe.weight"] = _t(dec["wpe"])
+        out[pre + "transformer.ln_f.weight"] = _t(dec["lnf_scale"])
+        out[pre + "transformer.ln_f.bias"] = _t(dec["lnf_bias"])
+        out[pre + "lm_head.weight"] = out[pre + "transformer.wte.weight"]   # tied
+        blocks = {k: _t(v) for k, v in dec["blocks"].items()}
+        for i in range(cfg.gpt2.n_layer):
+            for ours, theirs in _GPT2_BLOCK_KEYS:
+                # HF Conv1D stores [in, out], the port's layout
+                out[f"{pre}transformer.h.{i}.{theirs}"] = blocks[ours][i].contiguous()
+    if "proj_mlp" in params:
+        m = params["proj_mlp"]
+        for key, layer in (("proj.0", m["fc1"]), ("proj.2", m["fc2"])):
+            out[f"{key}.weight"] = _t(layer["w"]).t().contiguous()
+            out[f"{key}.bias"] = _t(layer["b"])
+    if "proj" in params:
+        log.warning("params carry a Linear adapter ('proj') with no reference key space; "
+                    "not exported")
+    return out
 
 
 def load_reference_state(state_dict: Mapping, cfg: CaptionModelConfig) -> Params:

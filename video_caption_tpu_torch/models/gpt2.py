@@ -22,6 +22,9 @@ set, the flat cache (decode_layer) takes the step.
 
 Unlike the JAX package, the caches are updated IN PLACE: a forward writes
 its new K/V rows into the buffer it was given and returns the same dict.
+That is why the training forward (``gpt2_logits_nocache``, teacher forcing)
+has no cache at all: each layer attends over its own K/V, since an in-place
+write would bump the version of a tensor autograd saved for the backward.
 The LM head of every decode step runs through the lm-head kernel
 (ops/lm_head.py), which also emits the selection statistics.
 """
@@ -286,3 +289,36 @@ def gpt2_beam_step(
         x = x + _mlp(x, blk, cfg)
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
     return lm_stats(x, wte_t, cfg, need_row_stats=True), gen_cache
+
+
+def gpt2_logits_nocache(params: Params, inputs_embeds: torch.Tensor, positions: torch.Tensor,
+                        attn_mask: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:
+    """Cache-free training forward (teacher forcing): [B,S,H] embeddings,
+    [B,S] positions and [B,S] mask (1 for real tokens) -> [B,S,V] f32
+    logits. Each layer attends over the step's own K/V with the masking and
+    rounding of ``_attend`` at offset 0 (causal and ``attn_mask``), and
+    writes no cache, so autograd can differentiate it."""
+    dt = cfg.dtype
+    x = inputs_embeds.to(dt) + _position_embeds(params, positions, dt)
+    b, s = x.shape[:2]
+    valid = attn_mask.to(torch.int32)
+    blocks = params["blocks"]
+    for layer in range(cfg.n_layer):
+        blk = {k: v[layer] for k, v in blocks.items()}
+        a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
+        qkv = linear(a_in, blk["attn_w"], blk["attn_b"]).reshape(b, s, 3, cfg.n_head, cfg.head_dim)
+        a_out = _attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], 0, valid, cfg)
+        x = x + linear(a_out, blk["proj_w"], blk["proj_b"])
+        x = x + _mlp(x, blk, cfg)
+    x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
+    return x.float() @ params["wte"].to(dt).float().t()
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """HF-style shifted causal-LM loss in f32; label -100 is ignored."""
+    shift_logits = logits[:, :-1, :].float()
+    shift_labels = labels[:, 1:].long()
+    mask = shift_labels != -100
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    nll = -logp.gather(-1, torch.where(mask, shift_labels, 0)[..., None])[..., 0]
+    return torch.where(mask, nll, 0.0).sum() / mask.sum().clamp(min=1)

@@ -1,18 +1,18 @@
 """ViT-B/16 frame encoder (counterpart of video_caption_tpu/models/vit.py).
 
-``[B,T,3,H,W] -> (B*T) frames -> ViT trunk -> CLS token -> temporal mean ->
-Linear(768->256)``, output in f32. Parameters keep the JAX package's layout:
-blocks stacked along a leading depth axis and every linear weight stored
-``[in, out]``, so the weight bridge (models/convert.py) moves arrays as they
-are. The attention of every block runs through the hand-written kernel
-(ops/encoder_attention.py) on the GPU.
+``[B,T,3,H,W] -> (B*T) frames -> ViT trunk -> pool (cls | gap) -> temporal
+mean -> Linear(768->256)``, output in f32. Parameters keep the JAX package's
+layout: blocks stacked along a leading depth axis and every linear weight
+stored ``[in, out]``, so the weight bridge (models/convert.py) moves arrays
+as they are. The attention of every block runs through the hand-written
+kernel (ops/encoder_attention.py) on the GPU; with ``pool="gap"`` the whole
+token stream reaches the fused pool kernel (ops/fused_pool.py). Both are
+differentiable, so the encoder trains (models/align.py) with the kernels in
+its forward; ``remat`` recomputes each block in the backward pass.
 
 Rounding points follow the JAX package: LayerNorm in f32 then cast back, the
 tanh-GELU in f32, attention probabilities cast to the compute dtype before
 AV, the encoder output cast to f32.
-
-Only the default ``pool="cls"`` is ported; ``gap`` (and its fused_pool
-kernel) is still to port and raises.
 """
 from __future__ import annotations
 
@@ -21,8 +21,10 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from video_caption_tpu_torch.ops.encoder_attention import encoder_attention
+from video_caption_tpu_torch.ops.fused_pool import fused_pool_temporal
 
 Params = Dict[str, Any]
 
@@ -43,6 +45,10 @@ class ViTConfig:
     dtype: torch.dtype = torch.bfloat16   # compute dtype
     gelu_approx: bool = True              # tanh-approx GELU (reference parity)
     gelu_f32: bool = True                 # GELU evaluated in f32
+    remat: bool = False
+    """Recompute each block in the backward pass (training only): the
+    forward keeps only the blocks' inputs, and the backward reruns each
+    block, the attention kernel included, before differentiating it."""
 
     @property
     def num_patches(self) -> int:
@@ -137,26 +143,29 @@ def vit_trunk(params: Params, images: torch.Tensor, cfg: ViTConfig,
     cls = params["cls_token"].to(dt).expand(n, 1, cfg.embed_dim)
     x = torch.cat([cls, x], dim=1) + params["pos_embed"].to(dt)
     blocks = params["blocks"]
+    remat = cfg.remat and torch.is_grad_enabled()
     for layer in range(cfg.depth):
-        x = _block(x, {k: v[layer] for k, v in blocks.items()}, cfg)
+        blk = {k: v[layer] for k, v in blocks.items()}
+        if remat:
+            x = checkpoint(_block, x, blk, cfg, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(x, blk, cfg)
     if cls_only:
         x = x[:, :1, :]
     return layer_norm(x, params["norm_scale"], params["norm_bias"], 1e-6)
 
 
-def _require_cls(cfg: ViTConfig) -> None:
-    if cfg.pool != "cls":
-        raise NotImplementedError(
-            f"pool={cfg.pool!r} runs through the fused_pool kernel, which is not ported yet")
-
-
 def pool_temporal(tokens: torch.Tensor, batch: int, frames: int, cfg: ViTConfig) -> torch.Tensor:
-    """CLS-only trunk output [B*T, 1, H] -> f32-accumulated temporal mean [B, H]."""
-    _require_cls(cfg)
-    if tokens.shape[1] != 1:
-        raise NotImplementedError("only the cls_only trunk output is ported")
-    per_frame = tokens[:, 0, :].float()
-    return per_frame.reshape(batch, frames, -1).mean(dim=1).to(tokens.dtype)
+    """Spatial pool + temporal mean: [B*T, S, H] -> [B, H] with f32
+    accumulation. The CLS-only trunk output (S == 1) takes its mean here;
+    the full stream goes through the fused pool kernel."""
+    if tokens.shape[1] == 1:
+        if cfg.pool != "cls":
+            raise ValueError(f"single-token trunk output is only valid for pool='cls' "
+                             f"(got pool={cfg.pool!r}): gap pooling excludes token 0")
+        per_frame = tokens[:, 0, :].float()
+        return per_frame.reshape(batch, frames, -1).mean(dim=1).to(tokens.dtype)
+    return fused_pool_temporal(tokens, batch, frames, cfg.pool)
 
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -174,11 +183,14 @@ def normalize_pixels(video: torch.Tensor) -> torch.Tensor:
 
 def vit_encode_frames(params: Params, frames: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     """Per-frame half of ``vit_encode``: [C,3,H,W] (uint8 or float) ->
-    per-frame CLS features [C, embed_dim] in the compute dtype."""
-    _require_cls(cfg)
+    per-frame pooled features [C, embed_dim] in the compute dtype (the CLS
+    token, or with gap the mean of the patch tokens, as the JAX package
+    takes it: no kernel)."""
     if frames.dtype == torch.uint8:
         frames = normalize_pixels(frames)
-    return vit_trunk(params, frames, cfg, cls_only=True)[:, 0, :]
+    if cfg.pool == "cls":
+        return vit_trunk(params, frames, cfg, cls_only=True)[:, 0, :]
+    return vit_trunk(params, frames, cfg)[:, 1:, :].mean(dim=1)
 
 
 def vit_finish(params: Params, per_frame: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
@@ -189,10 +201,10 @@ def vit_finish(params: Params, per_frame: torch.Tensor, cfg: ViTConfig) -> torch
 
 def vit_encode(params: Params, video: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     """[B,T,3,H,W] (uint8 or float) -> [B, out_dim] f32."""
-    _require_cls(cfg)
     if video.dtype == torch.uint8:
         video = normalize_pixels(video)
     b, t = video.shape[0], video.shape[1]
-    tokens = vit_trunk(params, video.reshape(b * t, *video.shape[2:]), cfg, cls_only=True)
+    tokens = vit_trunk(params, video.reshape(b * t, *video.shape[2:]), cfg,
+                       cls_only=cfg.pool == "cls")
     pooled = pool_temporal(tokens, b, t, cfg)
     return linear(pooled, params["head"]["w"], params["head"]["b"]).float()

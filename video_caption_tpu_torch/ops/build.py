@@ -43,6 +43,7 @@ SIGNATURES: Dict[str, List] = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vct_decode_attention": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
     "vct_decode_layer": [_P] * 19 + [_I] * 6 + [_F, _I, _P],
+    "vct_fused_pool": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

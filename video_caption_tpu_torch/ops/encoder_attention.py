@@ -3,6 +3,10 @@
 Counterpart of video_caption_tpu/ops/pallas/encoder_attention.py. The CUDA
 kernel is ``csrc/encoder_attention.cu``; ``encoder_attention_ref`` is the
 plain PyTorch version, the mirror of the JAX package's ``_xla_reference``.
+``encoder_attention`` is differentiable: its backward
+(``encoder_attention_bwd``) recomputes the f32 probabilities from the saved
+``qkv`` and differentiates the plain version's arithmetic in closed form, as
+the JAX package's ``_attention_bwd`` takes ``jax.vjp`` of ``_xla_reference``.
 """
 from __future__ import annotations
 
@@ -33,15 +37,8 @@ def encoder_attention_ref(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out.transpose(1, 2).reshape(n, s, h)
 
 
-def encoder_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Fused-QKV activation [N, S, 3H] -> attention output [N, S, H].
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    takes float32 or bfloat16, head dim 64 and S <= 443, and raises on
-    anything else."""
+def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     global launches
-    if qkv.device.type == "cpu":
-        return encoder_attention_ref(qkv, num_heads)
     build.require_cuda(qkv, "qkv")
     if qkv.ndim != 3 or qkv.shape[-1] != 3 * num_heads * HEAD_DIM:
         raise ValueError(f"qkv must be [N, S, 3 * {num_heads} * {HEAD_DIM}], got {tuple(qkv.shape)}")
@@ -55,3 +52,50 @@ def encoder_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
                  num_heads, build.dtype_code(qkv.dtype), build.stream_of(qkv))
     launches += 1
     return out
+
+
+def encoder_attention_bwd(qkv: torch.Tensor, grad_out: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """d(qkv) [N, S, 3H] for ``grad_out`` [N, S, H], rounding where the plain
+    version rounds: the probabilities recomputed in f32 and cast to the
+    dtype, dV = P^T dO and dP = dO V^T in the dtype, the softmax VJP in f32,
+    dQ and dK from the logits' gradient scaled by hd^-0.5, in f32, cast to
+    the dtype."""
+    n, s, h3 = qkv.shape
+    hd = h3 // 3 // num_heads
+    dt = qkv.dtype
+    r = qkv.reshape(n, s, 3, num_heads, hd)
+    q, k, v = (r[:, :, i].transpose(1, 2) for i in range(3))           # [N,nh,S,hd]
+    qf, kf = q.float(), k.float()
+    probs = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * (hd ** -0.5), dim=-1)
+    do = grad_out.reshape(n, s, num_heads, hd).transpose(1, 2).to(dt)
+    dv = torch.matmul(probs.to(dt).transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2)).float()
+    dlogits = probs * (dp - (dp * probs).sum(dim=-1, keepdim=True)) * (hd ** -0.5)
+    dq = torch.matmul(dlogits, kf).to(dt)
+    dk = torch.matmul(dlogits.transpose(-1, -2), qf).to(dt)
+    return torch.stack([dq, dk, dv], dim=2).transpose(1, 3).reshape(n, s, h3)
+
+
+class _EncoderAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv)
+        if qkv.device.type == "cpu":
+            return encoder_attention_ref(qkv, num_heads)
+        return _launch(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (qkv,) = ctx.saved_tensors
+        return encoder_attention_bwd(qkv, grad, ctx.num_heads), None
+
+
+def encoder_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Fused-QKV activation [N, S, 3H] -> attention output [N, S, H],
+    differentiable.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    takes float32 or bfloat16, head dim 64 and S <= 443, and raises on
+    anything else."""
+    return _EncoderAttention.apply(qkv, num_heads)

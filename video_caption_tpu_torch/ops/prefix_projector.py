@@ -2,7 +2,8 @@
 
 Counterpart of video_caption_tpu/ops/pallas/prefix_projector.py. The CUDA
 kernel is ``csrc/prefix_projector.cu``; ``prefix_project_ref`` is the plain
-PyTorch version.
+PyTorch version. ``prefix_project`` is differentiable: its backward
+(``prefix_project_bwd``) is the JAX package's closed-form ``_project_bwd``.
 """
 from __future__ import annotations
 
@@ -19,15 +20,8 @@ def prefix_project_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> tor
     return x @ w.to(x.dtype) + b.to(x.dtype)
 
 
-def prefix_project(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[B, d_in] @ [d_in, d_out] + [d_out] -> [B, d_out].
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    takes x in float32 and W, b both float32 or both bfloat16, and raises on
-    anything else."""
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     global launches
-    if x.device.type == "cpu":
-        return prefix_project_ref(x, w, b)
     for name, t in (("x", x), ("w", w), ("b", b)):
         build.require_cuda(t, name)
     if x.dtype != torch.float32:
@@ -45,3 +39,37 @@ def prefix_project(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
                  rows, din, dout, build.dtype_code(w.dtype), build.stream_of(x))
     launches += 1
     return y
+
+
+def prefix_project_bwd(x: torch.Tensor, w: torch.Tensor, grad: torch.Tensor,
+                       b_dtype: torch.dtype) -> tuple:
+    """(dx, dW, db) for ``grad`` [B, d_out], in f32: dx = g W^T, dW = x^T g,
+    db = sum of g over rows, each cast to its input's dtype."""
+    gf = grad.float()
+    dx = (gf @ w.float().t()).to(x.dtype)
+    dw = (x.float().t() @ gf).to(w.dtype)
+    return dx, dw, gf.sum(dim=0).to(b_dtype)
+
+
+class _PrefixProject(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.b_dtype = b.dtype
+        if x.device.type == "cpu":
+            return prefix_project_ref(x, w, b)
+        return _launch(x, w, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        return prefix_project_bwd(x, w, grad, ctx.b_dtype)
+
+
+def prefix_project(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B, d_in] @ [d_in, d_out] + [d_out] -> [B, d_out], differentiable.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    takes x in float32 and W, b both float32 or both bfloat16, and raises on
+    anything else."""
+    return _PrefixProject.apply(x, w, b)

@@ -1,6 +1,7 @@
-"""On-card checks of the six CUDA kernels against their plain PyTorch
+"""On-card checks of the seven CUDA kernels against their plain PyTorch
 versions, at the shapes the caption main path (and its two fused-decode
-configurations) gives them.
+configurations) and the two trainers give them, and of the backward passes
+of the three differentiable kernels.
 
 Each check builds seeded inputs on a CUDA device, runs the kernel wrapper and
 the plain version on the same tensors, and returns the largest absolute
@@ -36,6 +37,19 @@ Tolerances (elementwise ``|kernel - plain| <= atol + rtol * |plain|``):
   the elementwise 1e-2 / 1e-2 over one layer and 1e-4 / 1e-4 for all 12
   layers in f32 (the same emulation: 3.7e-6), which checks the layer loop,
   the barriers and the cache addressing of every layer.
+- fused_pool: f32 means of O(1) values over up to 8 x 196 rows, summed in
+  another order than the plain version (one sum over a video's rows against
+  per-frame means): 1e-5 / 1e-5; in bf16 the output rounds to a bf16 step:
+  1e-2 / 1e-2.
+
+Backward checks (``check_*_backward``) hold the input gradients of each
+``autograd.Function`` (the kernel's forward, its closed-form backward)
+against ``torch.autograd.grad`` through the plain version, as the largest
+error relative to the largest gradient value: encoder_attention 1e-4 in f32
+(the same rounding points, f32 sums over 197 rows in another order) and
+2e-2 in bf16 (dV and dP are products in bf16); fused_pool and
+prefix_projector 1e-5 (f32; the same divisions, and f32 sums over at most
+3072 products).
 """
 from __future__ import annotations
 
@@ -50,6 +64,7 @@ from video_caption_tpu_torch.ops import beam_attention as ba
 from video_caption_tpu_torch.ops import decode_attention as da
 from video_caption_tpu_torch.ops import decode_layer as dl
 from video_caption_tpu_torch.ops import encoder_attention as ea
+from video_caption_tpu_torch.ops import fused_pool as fpl
 from video_caption_tpu_torch.ops import lm_head as lmh
 from video_caption_tpu_torch.ops import prefix_projector as pp
 
@@ -68,10 +83,17 @@ KERNELS = {
                          "video_caption_tpu/ops/pallas/decode_attention.py:45", da),
     "decode_layer": ("cuda", "video_caption_tpu_torch/ops/csrc/decode_layer.cu",
                      "video_caption_tpu/ops/pallas/decode_layer.py:153", dl),
+    "fused_pool": ("cuda", "video_caption_tpu_torch/ops/csrc/fused_pool.cu",
+                   "video_caption_tpu/ops/pallas/fused_pool.py:77", fpl),
 }
 DEFAULT_PATH = ("encoder_attention", "prefix_projector", "lm_head", "beam_attention")
 """The kernels of the default configuration; decode_attention and
 decode_layer run only with their compile switches."""
+MAPPER_TRAINING_PATH = ("encoder_attention", "prefix_projector")
+"""The kernels of a mapper-trainer step (the encoder frozen, forward only)."""
+JOINT_TRAINING_PATH = ("encoder_attention", "fused_pool")
+"""The kernels of a stage-1 joint step with ``pool="gap"`` (forward, and
+again in the remat recompute)."""
 
 TOLERANCES = {
     "encoder_attention": (1e-2, 1e-2),
@@ -80,6 +102,13 @@ TOLERANCES = {
     "beam_attention": (1e-2, 1e-2),
     "decode_attention": (1e-2, 1e-2),
     "decode_layer": (1e-2, 1e-2),
+    "fused_pool": (1e-5, 1e-5),
+}
+BACKWARD_TOLERANCES = {           # largest error / largest gradient value
+    ("encoder_attention", torch.float32): 1e-4,
+    ("encoder_attention", torch.bfloat16): 2e-2,
+    ("fused_pool", torch.float32): 1e-5,
+    ("prefix_projector", torch.float32): 1e-5,
 }
 
 HBM_BYTES_PER_S = 3.35e12
@@ -318,11 +347,134 @@ def check_decode_layer(batch: int, device="cuda", n_layer: int = 12, h: int = 76
                    (bytes_, flops, x.dtype), tol=tol)
 
 
+def check_fused_pool(batch: int, frames: int, mode: str = "gap", dtype=torch.float32,
+                     device="cuda", seq: int = 197, h: int = 768, seed: int = 6) -> CheckResult:
+    g = _gen(device, seed)
+    tokens = torch.randn((batch * frames, seq, h), generator=g, device=device).to(dtype)
+    got = fpl.fused_pool_temporal(tokens, batch, frames, mode)
+    want = fpl.fused_pool_ref(tokens, batch, frames, mode)
+    rows = seq - 1 if mode == "gap" else 1           # the rows of a frame the pool reads
+    read = batch * frames * rows * h
+    work = (read * tokens.element_size() + nbytes(got), read, torch.float32)   # f32 adds
+    first = 1 if mode == "gap" else 0
+    view = tokens.view(batch, frames, seq, h)
+    tol = None if dtype == torch.float32 else (1e-2, 1e-2, False)
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    return _result("fused_pool", f"{mode} tokens[{batch * frames},{seq},{h}] {kind} (B={batch},T={frames})",
+                   [got], [want], lambda: fpl.fused_pool_temporal(tokens, batch, frames, mode),
+                   lambda: fpl.fused_pool_ref(tokens, batch, frames, mode), work,
+                   lambda: torch.mean(view[:, :, first:first + rows], dim=(1, 2),
+                                      dtype=torch.float32),
+                   tol=tol)
+
+
+@dataclass
+class BackwardResult:
+    """Input gradients of an ``autograd.Function`` (kernel forward,
+    closed-form backward) against ``torch.autograd.grad`` through the plain
+    version; times of forward + backward of each, of the closed-form
+    backward alone, and of one PyTorch call's forward + backward where
+    there is one."""
+
+    name: str
+    shape: str
+    max_abs_err: float
+    max_abs_grad: float
+    rel_tol: float
+    ok: bool
+    ms: float
+    plain_ms: float
+    bwd_ms: float
+    library_ms: Optional[float]
+
+    def as_dict(self) -> dict:
+        return asdict(self)
+
+
+def _backward_result(name, shape, dtype, inputs, fn, plain_fn, grad_out, bwd_fn,
+                     library_fn=None) -> BackwardResult:
+    def grads(f):
+        return torch.autograd.grad(f(*inputs), inputs, grad_out)
+
+    got, want = grads(fn), grads(plain_fn)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    scale = max(float(b.float().abs().max()) for b in want)
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    tol = BACKWARD_TOLERANCES[(name, dtype)]
+    return BackwardResult(name, shape, err, scale, tol, finite and err <= tol * scale,
+                          median_ms(lambda: grads(fn)), median_ms(lambda: grads(plain_fn)),
+                          median_ms(bwd_fn), median_ms(library_fn) if library_fn else None)
+
+
+def check_encoder_attention_backward(frames: int, dtype=torch.float32, device="cuda",
+                                     seq: int = 197, heads: int = 12,
+                                     seed: int = 7) -> BackwardResult:
+    g = _gen(device, seed)
+    h = heads * 64
+    qkv = torch.randn((frames, seq, 3 * h), generator=g, device=device).to(dtype)
+    grad_out = torch.randn((frames, seq, h), generator=g, device=device).to(dtype)
+    x = qkv.clone().requires_grad_()
+
+    def sdpa_fwd_bwd():
+        q, k, v = x.view(frames, seq, 3, heads, 64).permute(2, 0, 3, 1, 4)
+        out = F.scaled_dot_product_attention(q, k, v)
+        return torch.autograd.grad(out, x, grad_out.view(frames, seq, heads, 64).transpose(1, 2))
+
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    return _backward_result("encoder_attention", f"qkv[{frames},{seq},{3 * h}] {kind}", dtype,
+                            (x,), lambda t: ea.encoder_attention(t, heads),
+                            lambda t: ea.encoder_attention_ref(t, heads), grad_out,
+                            lambda: ea.encoder_attention_bwd(qkv, grad_out, heads), sdpa_fwd_bwd)
+
+
+def check_fused_pool_backward(batch: int, frames: int, mode: str = "gap", device="cuda",
+                              seq: int = 197, h: int = 768, seed: int = 8) -> BackwardResult:
+    g = _gen(device, seed)
+    x = torch.randn((batch * frames, seq, h), generator=g, device=device).requires_grad_()
+    grad_out = torch.randn((batch, h), generator=g, device=device)
+    return _backward_result("fused_pool", f"{mode} tokens[{batch * frames},{seq},{h}] f32",
+                            torch.float32, (x,),
+                            lambda t: fpl.fused_pool_temporal(t, batch, frames, mode),
+                            lambda t: fpl.fused_pool_ref(t, batch, frames, mode), grad_out,
+                            lambda: fpl.fused_pool_bwd(grad_out, seq, frames, mode))
+
+
+def check_prefix_projector_backward(rows: int, device="cuda", din: int = 256, dout: int = 3072,
+                                    seed: int = 9) -> BackwardResult:
+    g = _gen(device, seed)
+    x = (torch.randn((rows, din), generator=g, device=device) * 0.4).requires_grad_()
+    w = (torch.randn((din, dout), generator=g, device=device) * 0.02).requires_grad_()
+    b = (torch.randn((dout,), generator=g, device=device) * 0.02).requires_grad_()
+    grad_out = torch.randn((rows, dout), generator=g, device=device)
+
+    def addmm_fwd_bwd():
+        return torch.autograd.grad(torch.addmm(b, x, w), (x, w, b), grad_out)
+
+    return _backward_result("prefix_projector", f"x[{rows},{din}] @ w[{din},{dout}] f32",
+                            torch.float32, (x, w, b), pp.prefix_project, pp.prefix_project_ref,
+                            grad_out,
+                            lambda: pp.prefix_project_bwd(x.detach(), w.detach(), grad_out,
+                                                          torch.float32),
+                            addmm_fwd_bwd)
+
+
+def backward_checks(device="cuda") -> List[BackwardResult]:
+    """The backward passes at the trainers' shapes: the joint step's 4 videos
+    x 8 frames (encoder_attention in f32 and bf16, fused_pool gap f32) and
+    the mapper trainer's batch of 4."""
+    return [check_encoder_attention_backward(32, torch.float32, device),
+            check_encoder_attention_backward(32, torch.bfloat16, device),
+            check_fused_pool_backward(4, 8, "gap", device),
+            check_prefix_projector_backward(4, device)]
+
+
 def main_path_checks(device="cuda") -> List[CheckResult]:
     """Every kernel at the main path's shapes; the first check of each kernel
     is the single-request shape whose times chip_smoke.py reports (for the
     two fused-decode kernels, the single-request ``natural`` group: B=1, a
-    64-column cache)."""
+    64-column cache; for fused_pool, the joint training step's 4 videos x 8
+    frames in f32)."""
     out = []
     out += [check_encoder_attention(n, device) for n in (16, 128)]
     out += [check_prefix_projector(b, device) for b in (1, 8)]
@@ -334,4 +486,7 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     out += [check_decode_layer(b, device) for b in (1, 8)]
     out += [check_decode_layer(b, device, n_layer=1) for b in (1, 8)]
     out += [check_decode_layer(8, device, dtype=torch.float32)]
+    out += [check_fused_pool(4, 8, "gap", torch.float32, device),
+            check_fused_pool(16, 8, "gap", torch.bfloat16, device),
+            check_fused_pool(2, 8, "cls", torch.bfloat16, device)]
     return out
