@@ -7,11 +7,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 1. environment: requires CUDA; prints the torch/CUDA versions and the card's
    name and power limit (nvidia-smi);
 2. build: compiles the seven hand-written kernels (ops/csrc/*.cu), one nvcc
-   per source, all started together;
+   per source, all started together; prints nvcc's register and spill
+   report of every kernel and the count of tensor-core instructions (HMMA,
+   HGMMA) in its SASS (cuobjdump);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's and the trainers' shapes (error beside its tolerance, median
-   times of the kernel, the plain version and, where there is one, a single
-   PyTorch call of the same function, beside the bound); then the input
+   device times of the kernel, the plain version and, where there is one, a
+   single PyTorch call of the same function, beside the bound); then the input
    gradients of the three differentiable kernels (kernel forward,
    closed-form backward) against autograd through their plain versions;
 4. engine: a full-width ViT-B/16 + GPT-2 (124M) engine with seeded random
@@ -134,6 +136,9 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas {line.strip()}")
+    report["tensor_core_instructions"] = build.tensor_core_counts()
+    for fn, n in report["tensor_core_instructions"].items():
+        log(f"  sass {fn}: {n} HMMA/HGMMA")
 
     # ---- 3. kernels against their plain versions
     checks = selfcheck.main_path_checks()

@@ -26,9 +26,14 @@ def _assert_ok(result):
     assert result.ok, result.as_dict()
 
 
-@pytest.mark.parametrize("frames", [1, 16])
-def test_encoder_attention_kernel(cuda, frames):
-    _assert_ok(selfcheck.check_encoder_attention(frames, cuda))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("frames,seq", [(1, 197), (16, 197), (2, 1), (2, 7), (2, 16), (2, 17),
+                                        (2, 208), (2, 209), (2, 256), (2, "max")])
+def test_encoder_attention_kernel(cuda, frames, seq, dtype):
+    from video_caption_tpu_torch.ops import encoder_attention as ea
+
+    seq = ea.MAX_SEQ if seq == "max" else seq
+    _assert_ok(selfcheck.check_encoder_attention(frames, cuda, seq=seq, dtype=dtype))
 
 
 def test_encoder_attention_kernel_odd_sequence(cuda):
@@ -40,13 +45,25 @@ def test_prefix_projector_kernel(cuda, rows):
     _assert_ok(selfcheck.check_prefix_projector(rows, cuda))
 
 
-@pytest.mark.parametrize("rows", [1, 6, 9, 17])
+@pytest.mark.parametrize("rows", [1, 6, 9, 15, 16, 17, 63, 64, 65, 192, 256, 300])
 def test_lm_head_kernel(cuda, rows):
     _assert_ok(selfcheck.check_lm_head(rows, cuda))
 
 
-def test_lm_head_kernel_small_vocab(cuda):
-    _assert_ok(selfcheck.check_lm_head(4, cuda, h=128, vocab=1337))
+@pytest.mark.parametrize("rows", [1, 4, 17, 65, 192, 256])
+def test_lm_head_kernel_small_vocab(cuda, rows):
+    """Two windows of nothing but pad columns past the last word's."""
+    from video_caption_tpu_torch.ops import lm_head as lmh
+
+    _assert_ok(selfcheck.check_lm_head(rows, cuda, h=128, vocab=1337, pad_windows=2))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((rows, 128), generator=g, device=cuda).bfloat16()
+    w = torch.randn((128, 13 * 128), generator=g, device=cuda).bfloat16()
+    _, wmax, _, l = lmh.lm_head_stats(x, w, 1337)
+    _, _, _, l_unpadded = lmh.lm_head_stats(x, w[:, :11 * 128].contiguous(), 1337)
+    assert torch.isneginf(wmax[:, 11:]).all()
+    assert torch.isfinite(wmax[:, :11]).all()
+    torch.testing.assert_close(l, l_unpadded, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("videos,beams,steps,t", [(2, 3, 24, 0), (2, 3, 24, 23), (1, 4, 40, 17),
@@ -129,6 +146,22 @@ def test_kernel_launch_counters(cuda):
     assert ea.launches > before
 
 
+def test_kernels_launch_on_the_current_stream(cuda):
+    from video_caption_tpu_torch.ops import build
+    from video_caption_tpu_torch.ops import lm_head as lmh
+
+    x = torch.randn(3, 64, device=cuda).bfloat16()
+    w = torch.randn(64, 256, device=cuda).bfloat16()
+    want = lmh.lm_head_stats_ref(x, w, 200)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert build.stream_of(x) == side.cuda_stream != torch.cuda.default_stream().cuda_stream
+        side.wait_stream(torch.cuda.default_stream())
+        got = lmh.lm_head_stats(x, w, 200)
+    side.synchronize()
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=1e-4)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     from video_caption_tpu_torch.ops import encoder_attention as ea
     from video_caption_tpu_torch.ops import lm_head as lmh
@@ -137,8 +170,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ea.encoder_attention(torch.zeros(1, 5, 3 * 128, dtype=torch.float16, device=cuda), 2)
     with pytest.raises(ValueError):
         ea.encoder_attention(torch.zeros(1, 5, 3 * 96, device=cuda), 2)   # head dim 48
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError):
+            ea.encoder_attention(torch.zeros(1, ea.MAX_SEQ + 1, 3 * 128, dtype=dtype, device=cuda), 2)
+    with pytest.raises(ValueError):        # contiguous, but 2 bytes past a 16-byte boundary
+        ea.encoder_attention(torch.zeros(1 + 5 * 3 * 128, dtype=torch.bfloat16,
+                                         device=cuda)[1:].view(1, 5, 3 * 128), 2)
     with pytest.raises(ValueError):
         lmh.lm_head_stats(torch.zeros(2, 8, device=cuda), torch.zeros(8, 200, device=cuda), 200)
+    with pytest.raises(TypeError):         # x and wte_t of two dtypes
+        lmh.lm_head_stats(torch.zeros(2, 8, dtype=torch.bfloat16, device=cuda),
+                          torch.zeros(8, 256, device=cuda), 200)
+    with pytest.raises(ValueError):        # bf16 H not a multiple of 8
+        lmh.lm_head_stats(torch.zeros(2, 12, dtype=torch.bfloat16, device=cuda),
+                          torch.zeros(12, 256, dtype=torch.bfloat16, device=cuda), 200)
 
 
 def test_fused_pool_wrapper_rejects_what_the_kernel_does_not_take(cuda):

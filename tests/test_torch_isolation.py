@@ -142,7 +142,7 @@ def test_data_loader_copy_yields_the_same_batches(tmp_path, uint8_pixels, prefet
     ann = tmp_path / "ann.json"
     ann.write_text(json.dumps(_frame_dirs(tmp_path, 3, 3, seed=5)))
     kw = dict(batch_size=2, max_len=12, num_frame=4, image_size=32, uint8_pixels=uint8_pixels,
-              num_wokers=prefetch)
+              num_workers=prefetch)
     port = list(data_loader.build_dataloader(str(ann), tokenizer.get_tokenizer(), **kw))
     ref = list(jdata.build_dataloader(str(ann), jtokenizer.get_tokenizer(), **kw))
     assert len(port) == len(ref) == 3
@@ -151,3 +151,24 @@ def test_data_loader_copy_yields_the_same_batches(tmp_path, uint8_pixels, prefet
         for key in ("video", "caption_ids", "attention_mask"):
             assert a[key].dtype == b[key].dtype
             np.testing.assert_array_equal(a[key], b[key])
+
+
+def test_data_loader_prefetch_ends_with_its_iterator(tmp_path):
+    """A consumer that stops early leaves no prefetch thread reading frames,
+    and a frame that cannot be read raises in the consumer."""
+    import threading
+
+    ann = tmp_path / "ann.json"
+    ann.write_text(json.dumps(_frame_dirs(tmp_path, 3, 3, seed=5)))
+    loader = data_loader.build_dataloader(str(ann), tokenizer.get_tokenizer(), batch_size=1,
+                                          max_len=12, num_frame=4, image_size=32,
+                                          shuffle=False, num_workers=1)
+    before = threading.active_count()
+    for _ in loader:
+        assert threading.active_count() == before + 1
+        break
+    assert threading.active_count() == before
+    (tmp_path / "video1" / "frame_00000.jpg").write_bytes(b"not a jpeg")
+    with pytest.raises(Exception, match="cannot identify image file"):
+        list(loader)
+    assert threading.active_count() == before

@@ -4,6 +4,8 @@ interpret mode (or its XLA twin), plus numpy mirrors of the CUDA kernels'
 own algorithms (ancestor-column gather, two-pass row statistics) against
 the plain versions, and the dispatch rule: a tensor that is on neither the
 CPU nor a CUDA device raises, it never falls back."""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -211,3 +213,87 @@ def test_build_rejects_unsupported_dtype_and_keys_sources():
         for line in src.read_text().splitlines():
             if line.startswith('extern "C" int '):
                 assert line.split()[3].split("(")[0] in build.SIGNATURES, line
+
+
+def test_count_tensor_core_instructions_reads_a_sass_listing():
+    sass = """
+        code for sm_90a
+                Function : _Z6kernelA
+        /*0000*/                   LDSM.16.M88.4 R4, [R2] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R8, R4, R6, RZ ;
+        /*0020*/                   HMMA.1688.F32.TF32 R8, R4, R6, R8 ;
+                Function : _Z6kernelB
+        /*0000*/                   FFMA R1, R2, R3, R4 ;
+                Function : _Z6kernelC
+        /*0000*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ;
+    """
+    assert build.count_tensor_core_instructions(sass) == {"_Z6kernelA": 2, "_Z6kernelB": 0,
+                                                          "_Z6kernelC": 1}
+
+
+def test_time_kernels_needs_a_gpu(capsys):
+    from video_caption_tpu_torch.cli import time_kernels
+
+    if torch.cuda.is_available():
+        pytest.skip("this checks the refusal on a machine without a GPU")
+    assert time_kernels.main([]) == 1
+    assert "NVIDIA GPU" in capsys.readouterr().err
+
+
+def _split_tf32(x):
+    """numpy mirror of csrc/mma.cuh split_tf32: hi = the top 19 bits of x,
+    lo = the rest truncated to TF32 the same way."""
+    hi = (x.view(np.uint32) & np.uint32(0xffffe000)).view(np.float32)
+    lo = ((x - hi).view(np.uint32) & np.uint32(0xffffe000)).view(np.float32)
+    return hi, lo
+
+
+def test_3xtf32_split_keeps_f32_accuracy():
+    """The f32 encoder attention's products: hi*hi + hi*lo + lo*hi of TF32
+    parts (each product exact, as in the tensor cores) against the f64 dot
+    products of the same f32 inputs, at the 64-wide dot products of one head."""
+    rng = np.random.RandomState(3)
+    q = rng.randn(16, 64).astype(np.float32)
+    k = rng.randn(197, 64).astype(np.float32)
+    (qh, ql), (kh, kl) = _split_tf32(q), _split_tf32(k)
+    for part in (qh, ql, kh, kl):       # TF32 values: the low 13 mantissa bits are zero
+        assert not (part.view(np.uint32) & np.uint32(0x1fff)).any()
+    np.testing.assert_array_less(np.abs(q.astype(np.float64) - qh - ql), 2.0 ** -20 * np.abs(q) + 1e-30)
+    f64 = np.float64
+    want = q.astype(f64) @ k.T.astype(f64)
+    got = ql.astype(f64) @ kh.T.astype(f64) + qh.astype(f64) @ kl.T.astype(f64) \
+        + qh.astype(f64) @ kh.T.astype(f64)
+    one_term = qh.astype(f64) @ kh.T.astype(f64)
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() < 1e-6 * scale
+    assert np.abs(one_term - want).max() > 1e-4 * scale     # plain TF32 would miss 1e-4
+
+
+def test_profile_names_the_port_kernels_only():
+    from video_caption_tpu_torch.cli.profile_request import is_port_kernel
+
+    assert is_port_kernel("void (anonymous namespace)::attention_bf16_kernel<13>(__nv_bfloat16 const*)")
+    assert is_port_kernel("(anonymous namespace)::lm_head_row_stats_kernel(float const*, int)")
+    assert not is_port_kernel("void (anonymous namespace)::softmax_warp_forward<float, float>(float*)")
+    assert not is_port_kernel("void at::native::vectorized_elementwise_kernel<4>(int)")
+    # a word of the sources that names no kernel
+    assert not is_port_kernel("void (anonymous namespace)::launch<float, 13>(int)")
+
+
+def test_build_lists_every_kernel_of_the_sources():
+    """build.KERNELS, which the profilers match kernel names against, is
+    exactly the set of __global__ functions in ops/csrc."""
+    found = set()
+    for src in build.SRC_DIR.iterdir():
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for m in re.finditer(r"__global__\s+void\s+", text):
+            i = m.end()
+            if text.startswith("__launch_bounds__", i):      # skip its balanced parentheses
+                i, depth = text.index("(", i), 0
+                while True:
+                    depth += {"(": 1, ")": -1}.get(text[i], 0)
+                    i += 1
+                    if depth == 0:
+                        break
+            found.add(re.match(r"\s*(\w+)\s*\(", text[i:]).group(1))
+    assert found == build.KERNELS

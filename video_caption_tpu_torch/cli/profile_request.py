@@ -13,8 +13,9 @@ the default, ``compile.use_pallas_decode_attention`` and
    (ViT, prefix norm, mapper), and each decode group alone;
 2. one whole request under ``torch.profiler`` (CPU and CUDA activity): the
    number of device kernels, their summed device time, the device busy
-   share (the union of kernel intervals over the profiled span) and the
-   device time by kernel name.
+   share (the union of kernel intervals over the profiled span), the
+   device time by kernel name (the 12 largest) and that of every one of the
+   port's own kernels.
 
 Prints one JSON object per configuration; with ``--trace-dir`` also writes
 a Chrome trace per configuration. Needs an NVIDIA GPU: without one it exits
@@ -25,6 +26,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import sys
 import tempfile
@@ -34,6 +36,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from video_caption_tpu_torch.ops import build
 
 CONFIGS = ("default", "use_pallas_decode_attention", "use_pallas_decode_layer")
 
@@ -116,13 +120,24 @@ def profile_call(fn, trace: Path = None) -> dict:
     for e in kernels:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     if trace is not None:
         prof.export_chrome_trace(str(trace))
+    own = [kv for kv in ranked if is_port_kernel(kv[0])]
     return {"kernels": len(kernels), "device_ms": sum(v[1] for v in by_name.values()) / 1000,
             "busy_ms": busy / 1000, "profiled_wall_ms": wall_us / 1000,
             "busy_share": busy / wall_us if wall_us else 0.0,
-            "top": [{"name": n[:90], "launches": c, "ms": t / 1000} for n, (c, t) in top]}
+            "top": [{"name": n[:90], "launches": c, "ms": t / 1000} for n, (c, t) in ranked[:12]],
+            "port_kernels": [{"name": n[:90], "launches": c, "ms": t / 1000} for n, (c, t) in own]}
+
+
+def is_port_kernel(name: str) -> bool:
+    """Whether a profiled kernel is one of ops/csrc/*.cu (``build.KERNELS``,
+    each in an anonymous namespace)."""
+    prefix = "(anonymous namespace)::"
+    rest = name.removeprefix("void ")
+    ident = re.match(r"\w+", rest[len(prefix):]) if rest.startswith(prefix) else None
+    return ident is not None and ident.group(0) in build.KERNELS
 
 
 def main(argv=None) -> int:

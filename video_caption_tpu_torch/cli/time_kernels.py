@@ -1,0 +1,80 @@
+"""Times of the encoder_attention and lm_head wrappers of one checkout of the
+port, at the main path's shapes, by this checkout's timer.
+
+    python video_caption_tpu_torch/cli/time_kernels.py [--checkout DIR] [--runs 25]
+
+The port is imported from DIR (default: the checkout that holds this file),
+so two commits can be timed on one card in one call, in turns (parent,
+change, change, parent); the timer is always ``ops/selfcheck.median_ms`` of
+the checkout that holds this file. Each shape gets two medians of
+``--runs`` single calls of the wrapper (warm L2): ``ms``, the device's time
+for the call (a spin kernel holds the stream while the host enqueues it),
+and ``launch_ms``, the same without the spin, which holds the host's time to
+issue the call wherever that is the longer. The inputs are those of
+``ops/selfcheck.py``: qkv [N, 197, 2304] from a seeded normal, x [R, 768]
+and wte_t [768, 50304] * 0.02 in bf16. Prints one JSON object per shape,
+then the card's name and power limit. Needs an NVIDIA GPU: without one it
+exits with an error and times nothing.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ENCODER = ((16, "bf16"), (128, "bf16"), (32, "bf16"), (32, "f32"))
+LM_HEAD_ROWS = (1, 6, 9, 64, 192, 256)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--checkout", default=str(Path(__file__).resolve().parents[2]),
+                        help="root of the checkout whose port is timed")
+    parser.add_argument("--runs", type=int, default=25)
+    args = parser.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_kernels: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    from video_caption_tpu_torch.ops.selfcheck import median_ms
+
+    # drop this checkout's port so that the wrappers come from DIR
+    for name in [m for m in sys.modules if m.split(".")[0] == "video_caption_tpu_torch"]:
+        del sys.modules[name]
+    root = Path(args.checkout).resolve()
+    sys.path.insert(0, str(root))
+    from video_caption_tpu_torch.ops import encoder_attention as ea
+    from video_caption_tpu_torch.ops import lm_head as lmh
+
+    if not Path(ea.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported the port from {ea.__file__}, not from {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def report(kernel, shape, fn):
+        print(json.dumps({"checkout": str(root), "kernel": kernel, "shape": shape,
+                          "ms": median_ms(fn, args.runs),
+                          "launch_ms": median_ms(fn, args.runs, hold=False)}), flush=True)
+
+    for frames, kind in ENCODER:
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        qkv = torch.randn((frames, 197, 2304), generator=g, device="cuda").to(dtype)
+        report("encoder_attention", f"qkv[{frames},197,2304] {kind}",
+               lambda: ea.encoder_attention(qkv, 12))
+    w = (torch.randn((768, 50304), generator=g, device="cuda") * 0.02).bfloat16()
+    for rows in LM_HEAD_ROWS:
+        x = torch.randn((rows, 768), generator=g, device="cuda").bfloat16()
+        report("lm_head", f"R={rows} bf16", lambda: lmh.lm_head_stats(x, w, 50257))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -185,22 +185,46 @@ class DataLoader:
             for chunk in self._index_batches():
                 yield self._make_batch(chunk)
             return
-        # single background prefetch thread: hides JPEG decode behind device time
+        # single background prefetch thread: hides JPEG decode behind device time.
+        # It ends with its iterator: a consumer that stops early (a trainer's
+        # last step) closes the generator, which stops the thread and waits for
+        # it, so no frame is read after the caller moves on. A load that fails
+        # raises in the consumer's thread.
         q: "queue.Queue" = queue.Queue(maxsize=max(2, self.num_workers))
         sentinel = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def worker():
-            for chunk in self._index_batches():
-                q.put(self._make_batch(chunk))
-            q.put(sentinel)
+            try:
+                for chunk in self._index_batches():
+                    if not put(self._make_batch(chunk)):
+                        return
+                put(sentinel)
+            except Exception as err:
+                put(err)
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is sentinel:
-                break
-            yield item
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            t.join()
 
 
 def build_dataloader(

@@ -46,6 +46,14 @@ SIGNATURES: Dict[str, List] = {
     "vct_fused_pool": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
+# the __global__ functions of ops/csrc/*.cu (each in an anonymous namespace)
+KERNELS = frozenset({
+    "attention_bf16_kernel", "attention_f32_kernel", "prefix_projector_kernel",
+    "lm_head_mma_kernel", "lm_head_window_f32_kernel", "lm_head_row_stats_kernel",
+    "beam_attention_kernel", "decode_attention_kernel", "decode_layer_kernel",
+    "fused_pool_kernel",
+})
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
@@ -153,6 +161,28 @@ def build_log() -> str:
     return log.read_text() if log.is_file() else ""
 
 
+def tensor_core_counts() -> Dict[str, int]:
+    """{kernel symbol: count of tensor-core instructions} in the built
+    library's SASS, from ``cuobjdump -sass`` beside nvcc."""
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library_path())], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return count_tensor_core_instructions(sass)
+
+
+def count_tensor_core_instructions(sass: str) -> Dict[str, int]:
+    """{function: HMMA + HGMMA instructions} of a ``cuobjdump -sass`` listing."""
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
+
+
 def dtype_code(dtype: torch.dtype) -> int:
     """The dtype code the C entry points take (csrc/common.cuh)."""
     if dtype == torch.float32:
@@ -163,7 +193,11 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream on ``t``'s device. Read raw: the
+    public ``torch.cuda.current_stream(...).cuda_stream`` builds a Stream
+    object first, host time on every launch, and the decode loops that
+    launch these kernels are bound by the host."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def launch(name: str, *args) -> None:

@@ -10,11 +10,38 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 namespace vct {
 
 // dtype codes passed from Python (ops/build.py::dtype_code)
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+
+// Raise Kernel's dynamic shared-memory limit to `smem` bytes and set
+// *blocks to how many of its blocks of `threads` threads the current device
+// holds at once (blocks per SM x SMs). Both are done once per device and
+// kept: the calls cost host time on every launch otherwise, and the serving
+// path is bound by the host. `threads` and `smem` must be the same on every
+// call for one Kernel (`smem` the most any launch of it uses).
+template <auto Kernel>
+cudaError_t resident_blocks(int threads, int smem, int* blocks) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> known[kMaxDevices];   // 0 until the first launch there
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && (*blocks = known[dev].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  if ((err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, threads, smem)))
+    return err;
+  *blocks = sms * per_sm;
+  if (dev < kMaxDevices) known[dev].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -18,7 +18,8 @@ launches = 0
 """Number of times ``encoder_attention`` launched its CUDA kernel."""
 
 HEAD_DIM = 64       # the head dim the kernel is built for
-MAX_SEQ = 443       # K and V of one head in f32 must fit 227 KB of shared memory
+MAX_SEQ = 256       # a warp holds its rows' logits against every key in registers
+                    # (16 tiles of 16 keys), in bf16 and f32 alike
 
 
 def encoder_attention_ref(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -45,6 +46,10 @@ def _launch(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     n, s, h3 = qkv.shape
     if not 0 < s <= MAX_SEQ:
         raise ValueError(f"sequence length {s} outside 1..{MAX_SEQ}")
+    if n > 65535:
+        raise ValueError(f"{n} frames: the kernel's grid takes at most 65535")
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv must be 16-byte aligned: the kernel loads it in 16-byte chunks")
     out = torch.empty((n, s, h3 // 3), dtype=qkv.dtype, device=qkv.device)
     if n == 0:
         return out
@@ -96,6 +101,6 @@ def encoder_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     differentiable.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    takes float32 or bfloat16, head dim 64 and S <= 443, and raises on
-    anything else."""
+    takes float32 or bfloat16, head dim 64, S <= MAX_SEQ (256), N <= 65535
+    frames and qkv 16-byte aligned, and raises on anything else."""
     return _EncoderAttention.apply(qkv, num_heads)

@@ -9,6 +9,7 @@ maxima feed ``logits_process.exact_topk``'s two-stage top-k.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Tuple
 
 import torch
@@ -45,7 +46,9 @@ def lm_head_stats(x: torch.Tensor, wte_t: torch.Tensor, vocab_size: int) -> Stat
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
     takes x and wte_t of one dtype (float32 or bfloat16), Vp a multiple of 128
-    and any R, and raises on anything else."""
+    and any R (in bf16, H a multiple of 8 and both tensors 16-byte aligned),
+    and raises on anything else. In bf16 the kernel reads wte_t once per call
+    up to R = 256, and once per 256 rows above that."""
     global launches
     if x.device.type == "cpu":
         return lm_head_stats_ref(x, wte_t, vocab_size)
@@ -59,17 +62,18 @@ def lm_head_stats(x: torch.Tensor, wte_t: torch.Tensor, vocab_size: int) -> Stat
     vp = wte_t.shape[1]
     if vp % WINDOW or not 0 < vocab_size <= vp:
         raise ValueError(f"padded vocab {vp} must be a multiple of {WINDOW} holding {vocab_size}")
+    if x.dtype == torch.bfloat16 and (h % 8 or x.data_ptr() % 16 or wte_t.data_ptr() % 16):
+        raise ValueError("bf16 x and wte_t must be 16-byte aligned with H a multiple of 8")
+    # the five f32 outputs (the third the kernel's lpart) in one allocation,
+    # their views taken after the launch: the decode loop that calls this is
+    # bound by the host's time per call
     nwin = vp // WINDOW
-    f32 = dict(dtype=torch.float32, device=x.device)
-    logits = torch.empty((r, vp), **f32)
-    wmax = torch.empty((r, nwin), **f32)
-    lpart = torch.empty((r, nwin), **f32)
-    m = torch.empty((r,), **f32)
-    l = torch.empty((r,), **f32)
-    if r == 0:
-        return logits, wmax, m, l
-    build.launch("vct_lm_head_stats", x.data_ptr(), wte_t.data_ptr(), logits.data_ptr(),
-                 wmax.data_ptr(), lpart.data_ptr(), m.data_ptr(), l.data_ptr(),
-                 r, h, vp, vocab_size, build.dtype_code(x.dtype), build.stream_of(x))
-    launches += 1
-    return logits, wmax, m, l
+    sizes = (r * vp, r * nwin, r * nwin, r, r)
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    if r:
+        ptrs = [buf.data_ptr() + 4 * o for o in itertools.accumulate(sizes[:-1], initial=0)]
+        build.launch("vct_lm_head_stats", x.data_ptr(), wte_t.data_ptr(), *ptrs,
+                     r, h, vp, vocab_size, build.dtype_code(x.dtype), build.stream_of(x))
+        launches += 1
+    logits, wmax, _, m, l = buf.split(sizes)
+    return logits.view(r, vp), wmax.view(r, nwin), m, l

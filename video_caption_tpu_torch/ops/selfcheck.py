@@ -5,14 +5,19 @@ of the three differentiable kernels.
 
 Each check builds seeded inputs on a CUDA device, runs the kernel wrapper and
 the plain version on the same tensors, and returns the largest absolute
-error beside the tolerance it is held to, the median time of each (CUDA
-events, one launch per timed run), the time of one PyTorch call computing
+error beside the tolerance it is held to, the median device time of each
+(CUDA events around one call, the stream held by a spin kernel while the
+host enqueues it, so the host's time to issue the call is not counted),
+the time of one PyTorch call computing
 the same function where there is one (``library_ms``; the port never calls
 it), and the bound: the least time the card could take for the same work,
 the larger of the bytes the function must move (each input read once, each
 output written once; where the work depends on the data, what these inputs
 need) over 3.35 TB/s and its operations over the H100's dense peak for the
-operands' type (989 TFLOP/s bf16, 67 TFLOP/s f32; NVIDIA's data sheet).
+operands' type (989 TFLOP/s bf16, 67 TFLOP/s f32; NVIDIA's data sheet; the
+f32 encoder attention runs each f32 product as three TF32 products on the
+tensor cores, so its bound counts three times the operations at 495
+TFLOP/s, the least time either way).
 ``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py`` both use these.
 The launches made here count in the wrappers' ``launches``; a caller that
 reads the counts of a main path run resets them after these checks.
@@ -23,6 +28,9 @@ Tolerances (elementwise ``|kernel - plain| <= atol + rtol * |plain|``):
   over one layer: bf16 outputs of O(1). Both sides round at the same points
   but sum in another order, so a value can land one bf16 step (2^-8
   relative) apart: atol = rtol = 1e-2.
+- encoder_attention in f32: 3xTF32 products (each f32 product to about
+  2^-20 relative) and f32 sums over 64 dims and 197 keys in another order:
+  1e-4 / 1e-4.
 - prefix_projector: f32 out of f32 sums over 256 products: 1e-4 / 1e-4.
 - lm_head: f32 logits and statistics out of f32 sums over 768 products of
   bf16 values: 1e-4 / 1e-4 (l: rtol 1e-4).
@@ -112,7 +120,7 @@ BACKWARD_TOLERANCES = {           # largest error / largest gradient value
 }
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "3xtf32": 495e12}
 
 
 @dataclass
@@ -142,19 +150,35 @@ def nbytes(*tensors: torch.Tensor) -> int:
 
 def bound(bytes_: int, flops: int, dtype: torch.dtype) -> tuple:
     """(least ms, "bytes" or "operations") for moving ``bytes_`` and doing
-    ``flops`` operations on operands of ``dtype`` on one H100."""
+    ``flops`` operations on operands of ``dtype`` (a torch dtype, or "3xtf32"
+    for TF32 products) on one H100."""
     by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def median_ms(fn: Callable[[], object], runs: int = 25, warmup: int = 3) -> float:
-    """Median over ``runs`` of one call's device time (CUDA events)."""
+HOLD_CYCLES = 1_000_000
+"""Cycles of the spin kernel that holds the stream before each timed call
+(~0.5 ms at the H100's clock)."""
+
+
+def median_ms(fn: Callable[[], object], runs: int = 25, warmup: int = 3,
+              hold: bool = True) -> float:
+    """Median over ``runs`` of one call's device time (CUDA events). Before
+    each run a spin kernel holds the stream while the host enqueues the
+    start event, the call and the end event, so the interval is the
+    device's time for the call and not the host's time to issue it (a call
+    whose host side takes longer than the spin still shows the rest).
+    ``hold=False`` leaves out the spin: the interval then holds the host's
+    time to issue the call wherever that is the longer (one launch as the
+    caller sees it)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -198,17 +222,24 @@ def _gen(device, seed):
 
 
 def check_encoder_attention(frames: int, device="cuda", seq: int = 197, heads: int = 12,
-                            seed: int = 0) -> CheckResult:
+                            dtype=torch.bfloat16, seed: int = 0) -> CheckResult:
+    """The forward; in f32 the kernel runs 3xTF32 (three TF32 products per
+    f32 product) on the tensor cores, so its operations bound counts those
+    at the TF32 rate."""
     g = _gen(device, seed)
-    qkv = torch.randn((frames, seq, 3 * heads * 64), generator=g, device=device).bfloat16()
+    qkv = torch.randn((frames, seq, 3 * heads * 64), generator=g, device=device).to(dtype)
     got = ea.encoder_attention(qkv, heads)
     want = ea.encoder_attention_ref(qkv, heads)
     q, k, v = qkv.view(frames, seq, 3, heads, 64).permute(2, 0, 3, 1, 4)
-    work = (nbytes(qkv, got), 4 * frames * heads * seq * seq * 64, qkv.dtype)
-    return _result("encoder_attention", f"qkv[{frames},{seq},{3 * heads * 64}] bf16",
+    flops = 4 * frames * heads * seq * seq * 64
+    if dtype == torch.float32:
+        work, tol, kind = (nbytes(qkv, got), 3 * flops, "3xtf32"), (1e-4, 1e-4, False), "f32"
+    else:
+        work, tol, kind = (nbytes(qkv, got), flops, dtype), None, "bf16"
+    return _result("encoder_attention", f"qkv[{frames},{seq},{3 * heads * 64}] {kind}",
                    [got], [want], lambda: ea.encoder_attention(qkv, heads),
                    lambda: ea.encoder_attention_ref(qkv, heads), work,
-                   lambda: F.scaled_dot_product_attention(q, k, v))
+                   lambda: F.scaled_dot_product_attention(q, k, v), tol=tol)
 
 
 def check_prefix_projector(rows: int, device="cuda", din: int = 256, dout: int = 3072,
@@ -228,9 +259,11 @@ def check_prefix_projector(rows: int, device="cuda", din: int = 256, dout: int =
 
 
 def check_lm_head(rows: int, device="cuda", h: int = 768, vocab: int = 50257,
-                  seed: int = 2) -> CheckResult:
+                  pad_windows: int = 0, seed: int = 2) -> CheckResult:
+    """``pad_windows`` whole windows of pad columns past the one that holds
+    the last word (their wmax -inf, no share of l)."""
     g = _gen(device, seed)
-    vp = -(-vocab // lmh.WINDOW) * lmh.WINDOW
+    vp = (-(-vocab // lmh.WINDOW) + pad_windows) * lmh.WINDOW
     x = torch.randn((rows, h), generator=g, device=device).bfloat16()
     w = (torch.randn((h, vp), generator=g, device=device) * 0.02).bfloat16()
     w[:, vocab:] = 0
@@ -474,11 +507,15 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     is the single-request shape whose times chip_smoke.py reports (for the
     two fused-decode kernels, the single-request ``natural`` group: B=1, a
     64-column cache; for fused_pool, the joint training step's 4 videos x 8
-    frames in f32)."""
+    frames in f32). encoder_attention also runs at the trainers' 4 x 8
+    frames (f32 in the joint step, bf16 in the mapper step), lm_head from
+    one row to 256."""
     out = []
     out += [check_encoder_attention(n, device) for n in (16, 128)]
+    out += [check_encoder_attention(32, device, dtype=torch.float32),   # joint step
+            check_encoder_attention(32, device)]                        # mapper step
     out += [check_prefix_projector(b, device) for b in (1, 8)]
-    out += [check_lm_head(r, device) for r in (6, 1, 9, 192)]
+    out += [check_lm_head(r, device) for r in (6, 1, 9, 192, 64, 256)]
     for videos, beams, prefill, steps in ((2, 3, 48, 24), (1, 4, 48, 40)):
         out += [check_beam_attention(videos, beams, prefill, steps, t, device)
                 for t in (steps // 2, 0, steps - 1)]
