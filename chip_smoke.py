@@ -8,8 +8,10 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    name and power limit (nvidia-smi);
 2. build: compiles the seven hand-written kernels (ops/csrc/*.cu), one nvcc
    per source, all started together; prints nvcc's register and spill
-   report of every kernel and the count of tensor-core instructions (HMMA,
-   HGMMA) in its SASS (cuobjdump);
+   report of every kernel and the counts of tensor-core instructions (HMMA,
+   HGMMA), 16-byte global loads, generic loads (fused_pool's reads of a
+   cluster peer's shared memory) and cluster barriers in its SASS
+   (cuobjdump);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's and the trainers' shapes (error beside its tolerance, median
    device times of the kernel, the plain version and, where there is one, a
@@ -136,9 +138,9 @@ def main() -> int:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas {line.strip()}")
-    report["tensor_core_instructions"] = build.tensor_core_counts()
-    for fn, n in report["tensor_core_instructions"].items():
-        log(f"  sass {fn}: {n} HMMA/HGMMA")
+    report["sass_instructions"] = build.count_instructions(build.sass(), build.SASS_PATTERNS)
+    for fn, counts in report["sass_instructions"].items():
+        log(f"  sass {fn}: " + ", ".join(f"{n} {name}" for name, n in counts.items()))
 
     # ---- 3. kernels against their plain versions
     checks = selfcheck.main_path_checks()

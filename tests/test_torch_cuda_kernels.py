@@ -9,6 +9,7 @@ false. Run them on the GPU with
 import pytest
 import torch
 
+from torch_kernel_geometries import POOL_GEOMETRIES, PROJECTOR_GEOMETRIES
 from video_caption_tpu_torch.ops import selfcheck
 
 pytestmark = pytest.mark.cuda
@@ -118,8 +119,92 @@ def test_fused_pool_kernel(cuda, batch, frames, mode, dtype):
 
 
 def test_fused_pool_kernel_odd_width(cuda):
-    """H not a multiple of the 256 columns a block owns, nor of 128."""
+    """H not a multiple of a block's column tile, nor of 128."""
     _assert_ok(selfcheck.check_fused_pool(3, 2, "gap", torch.float32, cuda, seq=7, h=300))
+
+
+def _offset_view(shape, dtype, offset, seed, scale=1.0):
+    """A seeded normal tensor times ``scale`` of ``shape``, ``offset``
+    elements into a larger buffer (offset 1 breaks 16-byte alignment)."""
+    n = 1
+    for d in shape:
+        n *= d
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = (torch.randn(n + offset, generator=g, device="cuda") * scale).to(dtype)
+    return buf[offset:].view(shape)
+
+
+def _pool_tolerance(dtype):
+    return selfcheck.TOLERANCES["fused_pool"] if dtype == torch.float32 else (1e-2, 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,frames,seq,h", POOL_GEOMETRIES)
+def test_fused_pool_kernel_geometry_sweep(cuda, batch, frames, seq, h, dtype):
+    """Every geometry of the CPU plan sweep, both modes: within tolerance of
+    the plain version, and two calls bit-equal."""
+    from video_caption_tpu_torch.ops import fused_pool as fpl
+
+    tokens = _offset_view((batch * frames, seq, h), dtype, 0, seed=batch + frames + seq + h)
+    atol, rtol = _pool_tolerance(dtype)
+    for mode in ("gap", "cls"):
+        got = fpl.fused_pool_temporal(tokens, batch, frames, mode)
+        again = fpl.fused_pool_temporal(tokens, batch, frames, mode)
+        want = fpl.fused_pool_ref(tokens, batch, frames, mode)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,frames,seq,h,mode", [(4, 8, 197, 768, "gap"), (16, 8, 197, 768, "gap"),
+                                                     (2, 8, 197, 768, "cls"), (3, 2, 7, 100, "gap")])
+def test_fused_pool_kernel_misaligned_tokens(cuda, batch, frames, seq, h, mode, dtype):
+    """Tokens one element into a buffer take the kernel's scalar loads and
+    give the bits of the 16-byte loads on an aligned copy."""
+    from video_caption_tpu_torch.ops import fused_pool as fpl
+
+    tokens = _offset_view((batch * frames, seq, h), dtype, 1, seed=21)
+    assert tokens.data_ptr() % 16 != 0
+    got = fpl.fused_pool_temporal(tokens, batch, frames, mode)
+    aligned = fpl.fused_pool_temporal(tokens.clone(), batch, frames, mode)
+    assert torch.equal(got, aligned)
+    atol, rtol = _pool_tolerance(dtype)
+    torch.testing.assert_close(got.float(), fpl.fused_pool_ref(tokens, batch, frames, mode).float(),
+                               atol=atol, rtol=rtol)
+
+
+def _projector_inputs(rows, din, dout, w_dtype, x_offset=0, seed=22):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _offset_view((rows, din), torch.float32, x_offset, seed, scale=0.4)
+    w = (torch.randn((din, dout), generator=g, device="cuda") * 0.02).to(w_dtype)
+    b = (torch.randn((dout,), generator=g, device="cuda") * 0.02).to(w_dtype)
+    return x, w, b
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,din,dout", PROJECTOR_GEOMETRIES)
+def test_prefix_projector_kernel_geometry_sweep(cuda, rows, din, dout, w_dtype):
+    """Every geometry of the CPU plan sweep: within 1e-4 of the plain
+    version, and two calls bit-equal."""
+    from video_caption_tpu_torch.ops import prefix_projector as pp
+
+    x, w, b = _projector_inputs(rows, din, dout, w_dtype)
+    got, again = pp.prefix_project(x, w, b), pp.prefix_project(x, w, b)
+    torch.testing.assert_close(got, pp.prefix_project_ref(x, w, b), atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("rows,din,dout", [(1, 256, 3072), (64, 256, 3072), (65, 100, 3000)])
+def test_prefix_projector_kernel_misaligned_x(cuda, rows, din, dout):
+    """x one element into a buffer takes the kernel's scalar loads and gives
+    the bits of the 16-byte loads on an aligned copy."""
+    from video_caption_tpu_torch.ops import prefix_projector as pp
+
+    x, w, b = _projector_inputs(rows, din, dout, torch.bfloat16, x_offset=1)
+    assert x.data_ptr() % 16 != 0
+    got = pp.prefix_project(x, w, b)
+    assert torch.equal(got, pp.prefix_project(x.clone(), w, b))
+    torch.testing.assert_close(got, pp.prefix_project_ref(x, w, b), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("frames,dtype", [(32, torch.float32), (32, torch.bfloat16),

@@ -224,11 +224,18 @@ def test_count_tensor_core_instructions_reads_a_sass_listing():
         /*0020*/                   HMMA.1688.F32.TF32 R8, R4, R6, R8 ;
                 Function : _Z6kernelB
         /*0000*/                   FFMA R1, R2, R3, R4 ;
+        /*0010*/                   LDG.E.128.CONSTANT R8, desc[UR10][R10.64] ;
+        /*0020*/                   LDG.E R9, desc[UR10][R12.64] ;
+        /*0030*/                   UCGABAR_ARV ;
+        /*0040*/                   LD.E R2, desc[UR10][R16.64] ;
                 Function : _Z6kernelC
         /*0000*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ;
     """
-    assert build.count_tensor_core_instructions(sass) == {"_Z6kernelA": 2, "_Z6kernelB": 0,
-                                                          "_Z6kernelC": 1}
+    none = dict.fromkeys(build.SASS_PATTERNS, 0)
+    assert build.count_instructions(sass, build.SASS_PATTERNS) == {
+        "_Z6kernelA": {**none, "HMMA/HGMMA": 2},
+        "_Z6kernelB": {**none, "LDG.128": 1, "LD": 1, "UCGABAR": 1},
+        "_Z6kernelC": {**none, "HMMA/HGMMA": 1}}
 
 
 def test_time_kernels_needs_a_gpu(capsys):

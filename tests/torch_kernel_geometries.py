@@ -1,0 +1,12 @@
+"""Geometries swept by the launch-plan tests of the fused_pool and
+prefix_projector kernels: on the CPU (tests/test_torch_kernel_plans.py, the
+plans alone) and on the GPU (tests/test_torch_cuda_kernels.py, the kernels
+against their plain versions)."""
+
+POOL_GEOMETRIES = [(batch, frames, seq, h) for batch in (1, 4, 16) for frames in (1, 8)
+                   for seq in (2, 197) for h in (64, 100, 768, 770)]
+"""(B, T, S, H) of tokens [B*T, S, H]."""
+
+PROJECTOR_GEOMETRIES = [(rows, din, dout) for rows in (1, 4, 8, 64, 65, 300)
+                        for din in (100, 256) for dout in (3000, 3072)]
+"""(R, din, dout) of x [R, din] @ W [din, dout]."""

@@ -1,0 +1,102 @@
+"""Device times of the fused_pool and prefix_projector kernels under every
+candidate launch geometry, beside the one their ``plan`` picks.
+
+    python video_caption_tpu_torch/cli/sweep_plans.py [--runs 25]
+
+fused_pool at the shapes of ``cli/time_kernels.py`` (gap f32 [32,197,768],
+gap bf16 [128,197,768], cls bf16 [16,197,768]) under every tile of 4, 8,
+16 or 32 column groups and 1, 2, 4 or 8 splits; prefix_projector
+x [R, 256] @ W [256, 3072] bf16 at R = 1, 4, 8, 64 under 1, 2, 4 or 8 row
+groups. Each geometry is checked against the plain version, then timed by
+``ops/selfcheck.median_ms``: warm L2 (``ms``) and cold (``cold_ms``). Prints
+one JSON object per geometry (``"plan": true`` marks the wrapper's choice),
+then the card's name and power limit. Needs an NVIDIA GPU: without one it
+exits with an error and times nothing.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+POOL = ((4, 8, "gap", "f32"), (16, 8, "gap", "bf16"), (2, 8, "cls", "bf16"))
+PROJECTOR_ROWS = (1, 4, 8, 64)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--runs", type=int, default=25)
+    args = parser.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("sweep_plans: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    from video_caption_tpu_torch.ops import build
+    from video_caption_tpu_torch.ops import fused_pool as fpl
+    from video_caption_tpu_torch.ops import prefix_projector as pp
+    from video_caption_tpu_torch.ops.selfcheck import median_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def report(fields, fn, ok):
+        fn()
+        torch.cuda.synchronize()
+        print(json.dumps({**fields, "ok": ok(), "ms": median_ms(fn, args.runs),
+                          "cold_ms": median_ms(fn, args.runs, cold=True)}), flush=True)
+
+    for b, t, mode, kind in POOL:
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        tokens = torch.randn((b * t, 197, 768), generator=g, device="cuda").to(dtype)
+        want = fpl.fused_pool_ref(tokens, b, t, mode).float()
+        out = torch.empty((b, 768), dtype=dtype, device="cuda")
+        chosen = fpl.plan(b, t, 197, 768, tokens.element_size(), mode=mode)
+        for tile_vecs in (4, 8, 16, 32):
+            for splits in (1, 2, 4, 8):
+                per_split = -(-chosen.rows // splits)
+                if (splits - 1) * per_split >= chosen.rows:
+                    continue
+
+                def run(tile_vecs=tile_vecs, splits=splits, per_split=per_split):
+                    build.launch("vct_fused_pool", tokens.data_ptr(), out.data_ptr(), b, t, 197,
+                                 768, int(mode == "gap"), build.dtype_code(dtype), tile_vecs,
+                                 splits, per_split, 1, build.stream_of(tokens))
+
+                report({"kernel": "fused_pool", "shape": f"{mode} tokens[{b * t},197,768] {kind}",
+                        "tile_vecs": tile_vecs, "splits": splits,
+                        "plan": (tile_vecs, splits) == (chosen.tile_vecs, chosen.splits)},
+                       run, lambda: torch.allclose(out.float(), want, atol=1e-2, rtol=1e-2))
+    w = (torch.randn((256, 3072), generator=g, device="cuda") * 0.02).bfloat16()
+    bias = (torch.randn((3072,), generator=g, device="cuda") * 0.02).bfloat16()
+    for rows in PROJECTOR_ROWS:
+        x = torch.randn((rows, 256), generator=g, device="cuda") * 0.4
+        y = torch.empty((rows, 3072), device="cuda")
+        want = pp.prefix_project_ref(x, w, bias)
+        chosen = pp.plan(rows, 256, 3072, 2)
+        for rowgroups in (1, 2, 4, 8):
+            per_thread = 1
+            while per_thread < pp.MAX_ROWS_PER_THREAD and per_thread * rowgroups < rows:
+                per_thread *= 2
+
+            def run(rowgroups=rowgroups, per_thread=per_thread):
+                build.launch("vct_prefix_project", x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                             y.data_ptr(), rows, 256, 3072, build.dtype_code(w.dtype), rowgroups,
+                             per_thread, 256, 1, 1, build.stream_of(x))
+
+            report({"kernel": "prefix_projector", "shape": f"x[{rows},256] f32 @ w[256,3072] bf16",
+                    "rowgroups": rowgroups, "rows_per_thread": per_thread,
+                    "plan": (rowgroups, per_thread) == (chosen.rowgroups, chosen.rows_per_thread)},
+                   run, lambda: torch.allclose(y, want, atol=1e-4, rtol=1e-4))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,18 +1,27 @@
-"""Times of the encoder_attention and lm_head wrappers of one checkout of the
-port, at the main path's shapes, by this checkout's timer.
+"""Times of the encoder_attention, lm_head, fused_pool and prefix_projector
+wrappers of one checkout of the port, at the main path's shapes, by this
+checkout's timer.
 
     python video_caption_tpu_torch/cli/time_kernels.py [--checkout DIR] [--runs 25]
 
 The port is imported from DIR (default: the checkout that holds this file),
 so two commits can be timed on one card in one call, in turns (parent,
 change, change, parent); the timer is always ``ops/selfcheck.median_ms`` of
-the checkout that holds this file. Each shape gets two medians of
-``--runs`` single calls of the wrapper (warm L2): ``ms``, the device's time
-for the call (a spin kernel holds the stream while the host enqueues it),
-and ``launch_ms``, the same without the spin, which holds the host's time to
-issue the call wherever that is the longer. The inputs are those of
+the checkout that holds this file. Each shape gets four medians of
+``--runs`` single calls of the wrapper: ``ms``, the device's time for the
+call with its inputs warm in L2 (a spin kernel holds the stream while the
+host enqueues it); ``cold_ms``, the same after 256 MB written and read back
+(the inputs evicted, L2 clean); ``cold_dirty_ms``, after the write alone
+(the call also writes back the flush's dirty lines it evicts);
+``launch_ms``, warm without the spin, which holds the host's time to issue
+the call wherever that is the longer. fused_pool and prefix_projector also
+get a row for one PyTorch call of the same function (``checkout``
+"library": ``torch.mean`` over the pooled rows, ``torch.addmm`` on W in
+f32), which the port never calls; a last row times a kernel that spins for
+one cycle, the floor of this timer. The inputs are those of
 ``ops/selfcheck.py``: qkv [N, 197, 2304] from a seeded normal, x [R, 768]
-and wte_t [768, 50304] * 0.02 in bf16. Prints one JSON object per shape,
+and wte_t [768, 50304] * 0.02 in bf16, tokens [B*T, 197, 768], x [R, 256]
+* 0.4 with W [256, 3072] * 0.02 in bf16. Prints one JSON object per shape,
 then the card's name and power limit. Needs an NVIDIA GPU: without one it
 exits with an error and times nothing.
 """
@@ -26,6 +35,8 @@ from pathlib import Path
 
 ENCODER = ((16, "bf16"), (128, "bf16"), (32, "bf16"), (32, "f32"))
 LM_HEAD_ROWS = (1, 6, 9, 64, 192, 256)
+POOL = ((4, 8, "gap", "f32"), (16, 8, "gap", "bf16"), (2, 8, "cls", "bf16"))   # B, T, mode
+PROJECTOR_ROWS = (1, 4, 8, 64)
 
 
 def main(argv=None) -> int:
@@ -49,16 +60,20 @@ def main(argv=None) -> int:
     root = Path(args.checkout).resolve()
     sys.path.insert(0, str(root))
     from video_caption_tpu_torch.ops import encoder_attention as ea
+    from video_caption_tpu_torch.ops import fused_pool as fpl
     from video_caption_tpu_torch.ops import lm_head as lmh
+    from video_caption_tpu_torch.ops import prefix_projector as pp
 
     if not Path(ea.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported the port from {ea.__file__}, not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
 
-    def report(kernel, shape, fn):
-        print(json.dumps({"checkout": str(root), "kernel": kernel, "shape": shape,
+    def report(kernel, shape, fn, checkout=str(root)):
+        print(json.dumps({"checkout": checkout, "kernel": kernel, "shape": shape,
                           "ms": median_ms(fn, args.runs),
+                          "cold_ms": median_ms(fn, args.runs, cold=True),
+                          "cold_dirty_ms": median_ms(fn, args.runs, cold=True, dirty=True),
                           "launch_ms": median_ms(fn, args.runs, hold=False)}), flush=True)
 
     for frames, kind in ENCODER:
@@ -70,6 +85,25 @@ def main(argv=None) -> int:
     for rows in LM_HEAD_ROWS:
         x = torch.randn((rows, 768), generator=g, device="cuda").bfloat16()
         report("lm_head", f"R={rows} bf16", lambda: lmh.lm_head_stats(x, w, 50257))
+    for b, t, mode, kind in POOL:
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        tokens = torch.randn((b * t, 197, 768), generator=g, device="cuda").to(dtype)
+        first = 1 if mode == "gap" else 0
+        pooled = tokens.view(b, t, 197, 768)[:, :, first:197 if mode == "gap" else 1]
+        shape = f"{mode} tokens[{b * t},197,768] {kind}"
+        report("fused_pool", shape, lambda: fpl.fused_pool_temporal(tokens, b, t, mode))
+        report("fused_pool", shape, lambda: torch.mean(pooled, dim=(1, 2), dtype=torch.float32),
+               "library")
+    w = (torch.randn((256, 3072), generator=g, device="cuda") * 0.02).bfloat16()
+    bias = (torch.randn((3072,), generator=g, device="cuda") * 0.02).bfloat16()
+    w32, b32 = w.float(), bias.float()
+    for rows in PROJECTOR_ROWS:
+        x = torch.randn((rows, 256), generator=g, device="cuda") * 0.4
+        shape = f"x[{rows},256] f32 @ w[256,3072] bf16"
+        report("prefix_projector", shape, lambda: pp.prefix_project(x, w, bias))
+        report("prefix_projector", shape, lambda: torch.addmm(b32, x, w32), "library")
+    # the timer's floor: a kernel that spins for one cycle
+    report("launch floor", "torch.cuda._sleep(1)", lambda: torch.cuda._sleep(1), "library")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")

@@ -4,7 +4,10 @@ Build-on-first-use: compiles the shared library with g++ into
 ``build/native`` at the root of the checkout (git-ignored;
 ``VIDEO_CAPTION_TORCH_NATIVE_CACHE`` moves it), keyed by a source hash, and
 loads it with ctypes (no pybind11
-dependency). Any failure — missing toolchain, missing libjpeg, decode error
+dependency). The build is atomic: g++ writes ``<stem>.<pid>.tmp.so`` and
+``os.replace`` moves it to the library's name, so processes that build into
+one cache at once each load a whole library (never one another g++ is still
+writing), and a failed build leaves no file behind. Any failure — missing toolchain, missing libjpeg, decode error
 — returns None and the caller uses the PIL path, mirroring the reference's
 CuPy fallback contract (cupy_vit_pool.py:185-186).
 """
@@ -58,15 +61,18 @@ def _build_library() -> Optional[ctypes.CDLL]:
     cache.mkdir(parents=True, exist_ok=True)
     lib_path = cache / f"libvct_loader_{digest}.so"
     if not lib_path.exists():
+        tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
         cmd = [
             "g++", *cmd_flags.split(),
             "-std=c++17", "-shared", "-fPIC", str(_SRC),
-            "-o", str(lib_path), "-ljpeg", "-pthread",
+            "-o", str(tmp), "-ljpeg", "-pthread",
         ]
         log.info("building native frame loader: %s", " ".join(cmd))
         result = subprocess.run(cmd, capture_output=True, text=True)
         if result.returncode != 0:
+            tmp.unlink(missing_ok=True)
             raise RuntimeError(f"native build failed: {result.stderr[-500:]}")
+        os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     lib.vct_load_frames.restype = ctypes.c_int
     lib.vct_load_frames.argtypes = [

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,13 +38,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (ops/csrc/*.cu)
 SIGNATURES: Dict[str, List] = {
     "vct_encoder_attention": [_P, _P, _I, _I, _I, _I, _I, _P],
-    "vct_prefix_project": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vct_prefix_project": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "vct_lm_head_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vct_beam_attention": [_P, _I, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vct_decode_attention": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
     "vct_decode_layer": [_P] * 19 + [_I] * 6 + [_F, _I, _P],
-    "vct_fused_pool": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vct_fused_pool": [_P, _P] + [_I] * 10 + [_P],
 }
 
 # the __global__ functions of ops/csrc/*.cu (each in an anonymous namespace)
@@ -161,26 +162,37 @@ def build_log() -> str:
     return log.read_text() if log.is_file() else ""
 
 
-def tensor_core_counts() -> Dict[str, int]:
-    """{kernel symbol: count of tensor-core instructions} in the built
-    library's SASS, from ``cuobjdump -sass`` beside nvcc."""
+SASS_PATTERNS = {
+    "HMMA/HGMMA": r"HG?MMA",                  # tensor-core products
+    "LDG.128": r"\bLDG\.E(\.\w+)*\.128\b",   # 16-byte global loads
+    "LD": r"\bLD\.E\b",                       # generic loads (fused_pool: a cluster peer's shared memory)
+    "UCGABAR": r"\bUCGABAR_ARV\b",             # cluster barrier arrivals
+}
+"""Instructions counted per kernel in the built library's SASS."""
+
+
+def sass() -> str:
+    """``cuobjdump -sass`` of the built library (cuobjdump beside nvcc)."""
     cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(library_path())], capture_output=True,
+    return subprocess.run([str(cuobjdump), "-sass", str(library_path())], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    return count_tensor_core_instructions(sass)
 
 
-def count_tensor_core_instructions(sass: str) -> Dict[str, int]:
-    """{function: HMMA + HGMMA instructions} of a ``cuobjdump -sass`` listing."""
-    counts: Dict[str, int] = {}
+def count_instructions(listing: str, patterns: Dict[str, str]) -> Dict[str, Dict[str, int]]:
+    """{function: {name: lines matching patterns[name]}} of a ``cuobjdump
+    -sass`` listing."""
+    compiled = {name: re.compile(p) for name, p in patterns.items()}
+    counts: Dict[str, Dict[str, int]] = {}
     fn = None
-    for line in sass.splitlines():
+    for line in listing.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys(patterns, 0)
+        elif fn is not None:
+            for name, rx in compiled.items():
+                counts[fn][name] += bool(rx.search(line))
     return counts
+
 
 
 def dtype_code(dtype: torch.dtype) -> int:

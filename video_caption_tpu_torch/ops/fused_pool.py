@@ -9,6 +9,9 @@ encoder keeps the kernel in its forward.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from video_caption_tpu_torch.ops import build
@@ -17,6 +20,63 @@ launches = 0
 """Number of times ``fused_pool_temporal`` launched its CUDA kernel."""
 
 MODES = ("cls", "gap")
+THREADS = 256        # threads of a block: column groups x row lanes
+MAX_SPLITS = 8       # blocks of a cluster (the portable maximum)
+MIN_LANE_ROWS = 4    # rows a row lane reads at least, once a video is split
+
+
+@dataclass(frozen=True)
+class Plan:
+    """Launch geometry of ``csrc/fused_pool.cu``: grid (splits, tiles, batch)
+    of THREADS-thread blocks; a block sums ``tile_vecs`` groups of ``vec``
+    columns over pooled rows [split * rows_per_split, +rows_per_split) of its
+    video, its thread (group g, lane l) rows l, l + lanes, ...; the splits
+    blocks of a (video, tile) form one cluster."""
+
+    batch: int
+    vec: int             # columns of one 16-byte load
+    tile_vecs: int
+    lanes: int
+    tiles: int
+    rows: int            # pooled rows of a video
+    splits: int
+    rows_per_split: int
+
+    @property
+    def blocks(self) -> int:
+        return self.splits * self.tiles * self.batch
+
+
+def plan(batch: int, frames: int, seq: int, h: int, dtype_bytes: int, n_sm: int = 132,
+         mode: str = "gap") -> Plan:
+    """The geometry for tokens [batch * frames, seq, h] of ``dtype_bytes``
+    bytes. Tiles of 8 groups (128 bytes of a row per warp), and the fewest
+    splits (a power of two, at most MAX_SPLITS, each row lane reading at
+    least MIN_LANE_ROWS rows) that give 2.5 blocks per SM: on the H100 ~384
+    blocks of 256 threads read fastest (``cli/sweep_plans.py``). Tiles of 4
+    groups only where 8 fall short and 4 reach it."""
+    vec = 16 // dtype_bytes
+    groups = -(-h // vec)
+    rows = frames * (seq - 1 if mode == "gap" else 1)
+    target = 5 * n_sm // 2
+
+    def geometry(tile_vecs):
+        lanes, tiles = THREADS // tile_vecs, -(-groups // tile_vecs)
+        most = min(MAX_SPLITS, max(1, rows // (lanes * MIN_LANE_ROWS)))
+        splits = 1
+        while 2 * splits <= most and batch * tiles * splits < target:
+            splits *= 2
+        return Plan(batch, vec, tile_vecs, lanes, tiles, rows, splits, -(-rows // splits))
+
+    p = geometry(8)
+    if p.blocks < target and geometry(4).blocks >= target:
+        p = geometry(4)
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(tokens: torch.Tensor, batch: int, frames: int, mode: str) -> None:
@@ -48,8 +108,12 @@ def _launch(tokens: torch.Tensor, batch: int, frames: int, mode: str) -> torch.T
     out = torch.empty((batch, h), dtype=tokens.dtype, device=tokens.device)
     if h == 0:
         return out
+    size = tokens.element_size()
+    p = plan(batch, frames, s, h, size, _sm_count(tokens.get_device()), mode)
+    vector = tokens.data_ptr() % 16 == 0 and h % p.vec == 0   # else the kernel's scalar loads
     build.launch("vct_fused_pool", tokens.data_ptr(), out.data_ptr(), batch, frames, s, h,
-                 int(mode == "gap"), build.dtype_code(tokens.dtype), build.stream_of(tokens))
+                 int(mode == "gap"), build.dtype_code(tokens.dtype), p.tile_vecs, p.splits,
+                 p.rows_per_split, int(vector), build.stream_of(tokens))
     launches += 1
     return out
 

@@ -7,12 +7,62 @@ PyTorch version. ``prefix_project`` is differentiable: its backward
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from video_caption_tpu_torch.ops import build
 
 launches = 0
 """Number of times ``prefix_project`` launched its CUDA kernel."""
+
+THREADS = 256          # threads of a block: column groups x K lanes x row groups
+COLS = 32              # output columns of a block
+MAX_ROWS_PER_THREAD = 8
+MAX_KC = 256           # K rows of W a block stages at once
+PAD = 4                # floats of padding per shared-memory row
+
+
+@dataclass(frozen=True)
+class Plan:
+    """Launch geometry of ``csrc/prefix_projector.cu``: ``blocks`` blocks of
+    THREADS threads, each a slab of COLS columns of W, staged ``kc`` K rows at
+    a time; thread (group g, K lane l, row group q) sums K rows l, l + klanes,
+    ... of a chunk for rows q + i * rowgroups (i < rows_per_thread) of each
+    pass of ``row_chunk`` rows; ``smem`` bytes of dynamic shared memory."""
+
+    vec: int           # columns of one 16-byte load of W
+    groups: int        # 16-byte column groups of a slab
+    rowgroups: int
+    rows_per_thread: int
+    klanes: int
+    kc: int
+    row_chunk: int
+    blocks: int
+    smem: int
+
+
+def plan(rows: int, din: int, dout: int, w_bytes: int) -> Plan:
+    """The geometry for x [rows, din] @ W [din, dout] with W of ``w_bytes``
+    bytes: up to 4 rows one row group of 256 / groups K lanes, a thread
+    taking every row (the rows rounded up to a power of two); each doubling
+    of the rows past 4 doubles the row groups and halves the K lanes, up to
+    8 row groups (so a warp stays within one), then up to 8 rows a thread.
+    On the H100 4 rows a thread beat 8 at R = 8 (``cli/sweep_plans.py``)."""
+    vec = 16 // w_bytes
+    groups = COLS // vec
+    rowgroups = 1
+    while rowgroups < 8 and rowgroups * 4 < rows:
+        rowgroups *= 2
+    rows_per_thread = 1
+    while rows_per_thread < MAX_ROWS_PER_THREAD and rows_per_thread * rowgroups < rows:
+        rows_per_thread *= 2
+    klanes = THREADS // (groups * rowgroups)
+    kc = min(din, MAX_KC)
+    row_chunk = rowgroups * rows_per_thread
+    smem = 4 * (COLS + kc * (COLS + PAD) + row_chunk * kc + klanes * (row_chunk * COLS + PAD))
+    return Plan(vec, groups, rowgroups, rows_per_thread, klanes, kc, row_chunk, -(-dout // COLS),
+                smem)
 
 
 def prefix_project_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -35,8 +85,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     y = torch.empty((rows, dout), dtype=torch.float32, device=x.device)
     if rows == 0:
         return y
+    p = plan(rows, din, dout, w.element_size())
+    x_vec = x.data_ptr() % 16 == 0 and din % 4 == 0       # else the kernel's scalar loads
+    w_vec = w.data_ptr() % 16 == 0 and dout % p.vec == 0
     build.launch("vct_prefix_project", x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 rows, din, dout, build.dtype_code(w.dtype), build.stream_of(x))
+                 rows, din, dout, build.dtype_code(w.dtype), p.rowgroups, p.rows_per_thread,
+                 p.kc, int(x_vec), int(w_vec), build.stream_of(x))
     launches += 1
     return y
 

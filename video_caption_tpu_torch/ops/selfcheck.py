@@ -160,10 +160,13 @@ def bound(bytes_: int, flops: int, dtype: torch.dtype) -> tuple:
 HOLD_CYCLES = 1_000_000
 """Cycles of the spin kernel that holds the stream before each timed call
 (~0.5 ms at the H100's clock)."""
+FLUSH_BYTES = 256 * 2**20
+"""Bytes written before each cold run: five times the H100's 50 MB L2."""
+_flush: Optional[torch.Tensor] = None
 
 
 def median_ms(fn: Callable[[], object], runs: int = 25, warmup: int = 3,
-              hold: bool = True) -> float:
+              hold: bool = True, cold: bool = False, dirty: bool = False) -> float:
     """Median over ``runs`` of one call's device time (CUDA events). Before
     each run a spin kernel holds the stream while the host enqueues the
     start event, the call and the end event, so the interval is the
@@ -171,12 +174,23 @@ def median_ms(fn: Callable[[], object], runs: int = 25, warmup: int = 3,
     whose host side takes longer than the spin still shows the rest).
     ``hold=False`` leaves out the spin: the interval then holds the host's
     time to issue the call wherever that is the longer (one launch as the
-    caller sees it)."""
+    caller sees it). ``cold=True`` writes FLUSH_BYTES before each run (before
+    the spin) and reads them back, so the call finds its inputs in device
+    memory, not in L2, and L2 holds only clean lines; with ``dirty=True`` the
+    read-back is left out, and the call also writes back up to 50 MB of the
+    flush's dirty lines as its reads evict them."""
+    global _flush
+    if cold and _flush is None:
+        _flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if cold:
+            _flush.fill_(1)
+            if not dirty:
+                _flush.view(torch.int32).max()
         if hold:
             torch.cuda._sleep(HOLD_CYCLES)
         start.record()
@@ -508,13 +522,13 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     two fused-decode kernels, the single-request ``natural`` group: B=1, a
     64-column cache; for fused_pool, the joint training step's 4 videos x 8
     frames in f32). encoder_attention also runs at the trainers' 4 x 8
-    frames (f32 in the joint step, bf16 in the mapper step), lm_head from
-    one row to 256."""
+    frames (f32 in the joint step, bf16 in the mapper step), prefix_projector
+    at 1, 8, 4 (the mapper step) and 64 rows, lm_head from one row to 256."""
     out = []
     out += [check_encoder_attention(n, device) for n in (16, 128)]
     out += [check_encoder_attention(32, device, dtype=torch.float32),   # joint step
             check_encoder_attention(32, device)]                        # mapper step
-    out += [check_prefix_projector(b, device) for b in (1, 8)]
+    out += [check_prefix_projector(b, device) for b in (1, 8, 4, 64)]   # 4: the mapper step
     out += [check_lm_head(r, device) for r in (6, 1, 9, 192, 64, 256)]
     for videos, beams, prefill, steps in ((2, 3, 48, 24), (1, 4, 48, 40)):
         out += [check_beam_attention(videos, beams, prefill, steps, t, device)
