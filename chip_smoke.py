@@ -24,14 +24,20 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    presets, with the kernels' launch counts read around them (the default
    configuration launches the four kernels of the default path and neither
    fused-decode kernel); one request with the serving presets;
-5. fused decode: one engine with ``compile.use_pallas_decode_attention`` and
-   one with ``compile.use_pallas_decode_layer`` (the default engine's
-   parameters), each with a warm-up and timed core-preset requests, launch
-   counts read around them, and the sampled (``natural``) group timed alone
-   beside the default engine's;
+5. decode configurations: one engine with
+   ``compile.use_pallas_decode_attention`` and one with
+   ``compile.use_pallas_decode_layer`` (the default engine's parameters),
+   each with a warm-up and timed core-preset requests, launch counts read
+   around them, and the sampled (``natural``) group timed alone beside the
+   default engine's; then one with ``compile.deferred_decode_cache_write``,
+   a warm-up and timed core-preset requests, which must launch beam_attention
+   (in its deferred mode) as often per request as the default engine and
+   neither fused-decode kernel;
 6. reference: the prefix and the prefill logits against the plain path in
-   f32 on the CPU on a 2-frame input, and for each fused-decode engine the
-   logits of 4 K=1 decode steps against the same steps in f32 on the CPU;
+   f32 on the CPU on a 2-frame input; for each fused-decode engine and the
+   deferred engine the logits of 4 K=1 decode steps, and for the default and
+   the deferred engine the logits of 4 beam-3 steps (a fixed ancestry with
+   reordered beams), against the same steps in f32 on the CPU;
 7. mapper trainer: ``cli/train_caption_mapper.main`` on a synthetic
    annotations file over the same JPEG directories, full-width ViT-B/16 +
    GPT-2 with seeded random weights, bf16 compute, 4 videos x 8 frames, 5
@@ -79,6 +85,8 @@ DECODE_STEPS = 4
 NATURAL = ("natural", "Write a short, natural caption:")   # the core set's sampled preset
 SWITCHES = {"decode_attention": "use_pallas_decode_attention",
             "decode_layer": "use_pallas_decode_layer"}
+DEFERRED = "deferred_decode_cache_write"
+BEAMS = 3
 # bf16 on the card vs f32 on the CPU through 12 ViT layers (or 12 GPT-2
 # layers): the deployment bf16-vs-f32 bound, relative to the largest value
 REL_TOL = 5e-2
@@ -245,6 +253,28 @@ def main() -> int:
                                           "launches": counts, "results": res}
         report["natural_group_ms"] = natural_ms
 
+        cfg = dataclasses.replace(core_cfg, compile=dataclasses.replace(
+            core_cfg.compile, **{DEFERRED: True}))
+        deferred = InferenceEngine(cfg, params=engine.params, seed=SEED, device="cuda")
+        deferred.warmup()
+        torch.cuda.synchronize()
+        lat, res, counts = _timed_requests(deferred, dirs, FUSED_REQUESTS)
+        for r in res:
+            _check_result(r)
+        _require_launches(counts, selfcheck.DEFAULT_PATH, f"the {DEFERRED} path")
+        per_request = counts["beam_attention"] / len(lat)
+        default_per_request = launches["beam_attention"] / len(latencies)
+        log(f"engine {DEFERRED}=True: {len(lat)} requests, latencies "
+            f"{[round(x * 1000, 1) for x in lat]} ms, p50 {statistics.median(lat) * 1000:.1f} ms "
+            f"(default {p50 * 1000:.1f} ms); beam_attention launches {per_request:g} per request "
+            f"(default {default_per_request:g}); all {counts}")
+        log(f"engine {DEFERRED}=True result: {json.dumps(res[0])}")
+        if per_request != default_per_request or any(counts[n] for n in SWITCHES):
+            raise AssertionError(f"the {DEFERRED} path must launch beam_attention as the default "
+                                 f"path does and no fused-decode kernel: {counts}")
+        report["engine_deferred"] = {"latencies_s": lat, "p50_s": statistics.median(lat),
+                                     "launches": counts, "results": res}
+
         # ---- 6. correctness against the plain path in f32 on the CPU (2 frames)
         video = engine.load_video(dirs[1])[:, :2]
         cpu_cfg = _f32(engine.model_cfg)
@@ -267,19 +297,21 @@ def main() -> int:
         if not (finite and prefix_err < REL_TOL and logits_err < REL_TOL
                 and pre_gpu.shape == (1, 4, 768)):
             raise AssertionError("the GPU path disagrees with the f32 plain path")
-        for kernel, eng in fused.items():
+        steps = [(SWITCHES[k], e, _decode_logits, "K=1 decode") for k, e in fused.items()]
+        steps += [(DEFERRED, deferred, _decode_logits, "K=1 decode"),
+                  ("default", engine, _beam_decode_logits, f"beam-{BEAMS}"),
+                  (DEFERRED, deferred, _beam_decode_logits, f"beam-{BEAMS}")]
+        for name, eng, run, kind in steps:
             with torch.inference_mode():
-                steps_gpu = _decode_logits(eng.params["decoder"], eng.model_cfg.gpt2, emb_gpu)
-                steps_cpu = _decode_logits(cpu_params["decoder"], _f32(eng.model_cfg).gpt2,
-                                           emb_cpu)
+                steps_gpu = run(eng.params["decoder"], eng.model_cfg.gpt2, emb_gpu)
+                steps_cpu = run(cpu_params["decoder"], _f32(eng.model_cfg).gpt2, emb_cpu)
             err = rel_err(steps_gpu[..., :v], steps_cpu[..., :v])
             finite = bool(torch.isfinite(steps_gpu[..., :v]).all())
-            log(f"reference {SWITCHES[kernel]}: {DECODE_STEPS} K=1 decode steps, logits "
+            log(f"reference {name}: {DECODE_STEPS} {kind} steps, logits "
                 f"{tuple(steps_gpu.shape)} rel err {err:.3e} (bound {REL_TOL:g}), finite {finite}")
-            report["reference"][f"{kernel}_steps_rel_err"] = err
+            report["reference"][f"{name} {kind} steps_rel_err"] = err
             if not (finite and err < REL_TOL):
-                raise AssertionError(f"the {SWITCHES[kernel]} decode steps disagree with the "
-                                     "f32 plain path")
+                raise AssertionError(f"the {name} {kind} steps disagree with the f32 plain path")
 
         # ---- 7. and 8. the two trainers
         ann = Path(tmp) / "annotations.json"
@@ -559,6 +591,37 @@ def _decode_logits(params, cfg, embeds):
         (logits, _, _, _), cache = g2.gpt2_forward(
             params, params["wte"][ids][:, None], torch.full((b, 1), s0 + t, device=dev), valid,
             cache, s0 + t, cfg, wte_t=wte_t, return_stats=True, row_stats=False)
+        out.append(logits)
+    return torch.stack(out)
+
+
+def _beam_decode_logits(params, cfg, embeds):
+    """Logits [DECODE_STEPS, B*BEAMS, Vp] of beam steps through
+    gpt2_beam_step with ``cfg``'s decode configuration after a prefill of
+    ``embeds``: each step's beams descend from beams 0, 0, 1 of the last
+    step (the ancestry reorders) and feed fixed tokens."""
+    from video_caption_tpu_torch.decode import generate as gen
+    from video_caption_tpu_torch.models import gpt2 as g2
+
+    b, s0, _ = embeds.shape
+    dev, r = embeds.device, b * BEAMS
+    wte_t = g2.lm_head_t(params, cfg)
+    _, pcache, pvalid, row_len = gen._prefill(params, cfg, embeds, s0, None, wte_t, split=True,
+                                              row_stats=True)
+    gen_cache = g2.init_cache(cfg, r, DECODE_STEPS, dev, layout="beam_gen")
+    rows = torch.arange(r, dtype=torch.int32, device=dev)
+    first = (rows // BEAMS) * BEAMS
+    parent = first + torch.tensor([0, 0, 1], device=dev).repeat(b)
+    anc = torch.zeros((r, DECODE_STEPS), dtype=torch.int32, device=dev)
+    out = []
+    for t, token in enumerate((32, 97, 32, 109)[:DECODE_STEPS]):
+        if t:
+            anc = anc[parent]
+        anc[:, t] = rows
+        ids = token + rows.long() % BEAMS
+        (logits, _, _, _), gen_cache = g2.gpt2_beam_step(
+            params, params["wte"][ids], row_len.repeat_interleave(BEAMS) + t, pcache, pvalid,
+            gen_cache, anc, t, BEAMS, cfg, wte_t)
         out.append(logits)
     return torch.stack(out)
 

@@ -9,7 +9,7 @@ false. Run them on the GPU with
 import pytest
 import torch
 
-from torch_kernel_geometries import POOL_GEOMETRIES, PROJECTOR_GEOMETRIES
+from torch_kernel_geometries import BEAM_GEOMETRIES, POOL_GEOMETRIES, PROJECTOR_GEOMETRIES
 from video_caption_tpu_torch.ops import selfcheck
 
 pytestmark = pytest.mark.cuda
@@ -67,10 +67,92 @@ def test_lm_head_kernel_small_vocab(cuda, rows):
     torch.testing.assert_close(l, l_unpadded, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("deferred", [False, True])
 @pytest.mark.parametrize("videos,beams,steps,t", [(2, 3, 24, 0), (2, 3, 24, 23), (1, 4, 40, 17),
                                                   (3, 3, 6, 5)])
-def test_beam_attention_kernel(cuda, videos, beams, steps, t):
-    _assert_ok(selfcheck.check_beam_attention(videos, beams, 12, steps, t, cuda))
+def test_beam_attention_kernel(cuda, videos, beams, steps, t, deferred):
+    _assert_ok(selfcheck.check_beam_attention(videos, beams, 12, steps, t, cuda,
+                                              deferred=deferred))
+
+
+def _beam_call(case, t, beams, heads, deferred, fn=None):
+    from video_caption_tpu_torch.ops import beam_attention as ba
+
+    q, k_new, v_new, gkv, pk, pv, valid, anc = case
+    kw = dict(k_new=k_new, v_new=v_new) if deferred else {}
+    return (fn or ba.beam_attention)(q, gkv, pk, pv, valid, anc, t, beams, heads, **kw)
+
+
+def _beam_tolerance(dtype):
+    return (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("videos,beams,s0,n", BEAM_GEOMETRIES)
+def test_beam_attention_kernel_geometry_sweep(cuda, videos, beams, s0, n, dtype):
+    """Every geometry of the CPU plan sweep at t = 0, N/2 and N-1, both
+    modes: within tolerance of the plain version, and two calls bit-equal."""
+    from video_caption_tpu_torch.ops import beam_attention as ba
+
+    case = selfcheck.beam_attention_case(videos, beams, s0, n, cuda, heads=2, dtype=dtype,
+                                         seed=videos + beams + s0 + n)
+    atol, rtol = _beam_tolerance(dtype)
+    for t in sorted({0, n // 2, n - 1}):
+        for deferred in (False, True):
+            got = _beam_call(case, t, beams, 2, deferred)
+            again = _beam_call(case, t, beams, 2, deferred)
+            want = _beam_call(case, t, beams, 2, deferred, ba.beam_attention_ref)
+            torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+def test_beam_attention_kernel_all_invalid_prefill_row(cuda, deferred):
+    """A video whose prefill is all left padding attends only its generated
+    columns (and the self column)."""
+    from video_caption_tpu_torch.ops import beam_attention as ba
+
+    case = list(selfcheck.beam_attention_case(2, 3, 16, 8, cuda, heads=2))
+    case[6] = case[6].clone()
+    case[6][1] = 0
+    got = _beam_call(case, 5, 3, 2, deferred)
+    want = _beam_call(case, 5, 3, 2, deferred, ba.beam_attention_ref)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_beam_attention_kernel_strided_and_contiguous_q_agree(cuda):
+    """q, k_new and v_new as strided thirds of the fused QKV output give the
+    bits of contiguous copies."""
+    case = selfcheck.beam_attention_case(2, 3, 48, 24, cuda)
+    assert case[0].stride(0) == 3 * case[0].shape[1]
+    dense = [x.contiguous() for x in case[:3]] + list(case[3:])
+    for deferred in (False, True):
+        assert torch.equal(_beam_call(case, 12, 3, 12, deferred),
+                           _beam_call(dense, 12, 3, 12, deferred))
+
+
+def test_beam_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from video_caption_tpu_torch.ops import beam_attention as ba
+
+    q, k_new, v_new, gkv, pk, pv, valid, anc = selfcheck.beam_attention_case(2, 3, 8, 6, cuda,
+                                                                            heads=2)
+    args = (q, gkv, pk, pv, valid, anc, 3, 3, 2)
+    with pytest.raises(ValueError, match="together"):
+        ba.beam_attention(*args, k_new=k_new)
+    with pytest.raises(TypeError):             # k_new not in q's dtype
+        ba.beam_attention(*args, k_new=k_new.float(), v_new=v_new)
+    with pytest.raises(ValueError):            # k_new not [R, H]
+        ba.beam_attention(*args, k_new=k_new[:4], v_new=v_new)
+    with pytest.raises(ValueError):            # k_new and v_new of two row strides
+        ba.beam_attention(*args, k_new=k_new.contiguous(), v_new=v_new)
+    with pytest.raises(ValueError):            # rows off a 16-byte boundary
+        buf = torch.zeros(6 * 128 + 1, dtype=q.dtype, device=cuda)
+        ba.beam_attention(buf[1:].view(6, 128), *args[1:])
+    with pytest.raises(ValueError):
+        ba.beam_attention(*args[:6], 6, 3, 2)  # step outside the cache
+    with pytest.raises(ValueError):            # more beams than the kernel serves
+        big = selfcheck.beam_attention_case(1, ba.MAX_BEAMS + 1, 4, 2, cuda, heads=1)
+        _beam_call(big, 0, ba.MAX_BEAMS + 1, 1, False)
 
 
 @pytest.mark.parametrize("batch,length,heads", [(1, 64, 12), (64, 64, 12), (3, 13, 4),

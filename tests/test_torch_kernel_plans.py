@@ -1,5 +1,6 @@
-"""The launch plans of the fused_pool and prefix_projector kernels on the
-CPU, and the port's C++ frame loader built by several processes at once.
+"""The launch plans of the fused_pool, prefix_projector and beam_attention
+kernels on the CPU, and the port's C++ frame loader built by several
+processes at once.
 
 - Each plan (ops/fused_pool.py::plan, ops/prefix_projector.py::plan) over a
   sweep of geometries: every pooled row, or every K index, row of x and
@@ -12,6 +13,13 @@ CPU, and the port's C++ frame loader built by several processes at once.
   package's ``_xla_pool`` and
   ``prefix_project``, from numpy inputs made from a seed, at the kernels'
   f32 tolerances (1e-5 pool, 1e-4 projector).
+- beam_attention (ops/beam_attention.py::plan) over every step of a sweep
+  of geometries in both modes and both dtypes: the chunks cover every
+  logical column once, hold at most ``stage_rows`` rows, start exactly above
+  the staging limit, and the shared memory stays within 227 KB; a numpy
+  mirror of the kernel (staged rows looked up through the ancestry, a dot per
+  (beam, column) in eight interleaved sums, the warp softmax, AV by column
+  groups, the self column last) against the JAX package's ``_beam_attend`` at 1e-5.
 - Six processes started from one barrier build the native loader into one
   empty cache; each loads it and decodes a JPEG equal to PIL's.
 """
@@ -26,9 +34,11 @@ import pytest
 import torch
 from PIL import Image
 
-from torch_kernel_geometries import POOL_GEOMETRIES, PROJECTOR_GEOMETRIES
+from torch_kernel_geometries import BEAM_GEOMETRIES, POOL_GEOMETRIES, PROJECTOR_GEOMETRIES
+from video_caption_tpu.models import gpt2 as jg2
 from video_caption_tpu.ops.pallas import fused_pool as jfp
 from video_caption_tpu.ops.pallas import prefix_projector as jpp
+from video_caption_tpu_torch.ops import beam_attention as ba
 from video_caption_tpu_torch.ops import fused_pool as fpl
 from video_caption_tpu_torch.ops import prefix_projector as pp
 
@@ -184,6 +194,172 @@ def test_prefix_projector_summation_order_matches_jax(rows, din, dout):
     got = _emulate_projector(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), p)
     want = np.asarray(jpp.prefix_project(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+# ---- beam_attention ---------------------------------------------------------
+
+def _staged_rows(chunk, s0, steps, beams):
+    """Rows the kernel stages for logical columns [l0, l1): one a prefill
+    column, ``beams`` a generated step."""
+    l0, l1 = chunk
+    prefill = max(0, min(s0, l1) - l0)
+    return prefill + (l1 - l0 - prefill) * beams
+
+
+def _beam_smem(p: ba.Plan, s0: int, dtype_bytes: int, deferred: bool) -> int:
+    """The shared memory the plan's regions need, counted afresh."""
+    def a16(x):
+        return -(-x // 16) * 16
+
+    stage = 2 * p.stage_rows * (64 * dtype_bytes + 16)
+    rows_of_q = p.beams * 64 * dtype_bytes * (3 if deferred else 1)
+    per_beam = a16(4 * p.beams * (s0 + p.steps + 1))
+    return stage + rows_of_q + 2 * per_beam + a16(4 * s0) + a16(4 * p.beams * p.steps) \
+        + ba.THREADS * 8 * 4
+
+
+@pytest.mark.parametrize("videos,beams,s0,n", BEAM_GEOMETRIES)
+def test_beam_attention_plan_stages_every_column_once(videos, beams, s0, n):
+    for dtype_bytes in (2, 4):
+        limit = ba.stage_limit(dtype_bytes)
+        for deferred in (False, True):
+            for t in range(n):
+                p = ba.plan(videos, beams, s0, n, t, dtype_bytes, deferred)
+                steps = t if deferred else t + 1
+                assert p.steps == steps and p.rows == s0 + beams * steps
+                assert p.stage_rows == min(p.rows, limit) and p.stage_rows >= min(p.rows, beams)
+                covered = [l for l0, l1 in p.chunks for l in range(l0, l1)]
+                assert covered == list(range(s0 + steps)), p
+                assert all(_staged_rows(c, s0, steps, beams) <= p.stage_rows for c in p.chunks)
+                assert (len(p.chunks) > 1) == (p.rows > limit), p   # chunks exactly above it
+                assert p.smem == _beam_smem(p, s0, dtype_bytes, deferred) <= ba.SMEM_LIMIT
+                assert p.groups * beams * 8 <= ba.THREADS
+
+
+def test_beam_attention_plan_limits():
+    """The staging limit in rows (96 KB of padded K and V rows), and the
+    largest call the wrapper takes within 227 KB."""
+    assert ba.stage_limit(2) == 341 and ba.stage_limit(4) == 180
+    assert ba.plan(2, 3, 48, 24, 12, 2, False).chunks == ((0, 61),)
+    assert len(ba.plan(1, 4, 48, 40, 39, 4, False).chunks) == 2      # f32, 208 rows
+    p = ba.plan(1, ba.MAX_BEAMS, ba.MAX_PREFILL, 64, 63, 4, True)
+    assert p.smem <= ba.SMEM_LIMIT and len(p.chunks) > 1
+
+
+def _fma(acc, x, y):
+    """f32 fused multiply-add, through f64 (the f32 product is exact there)."""
+    return np.float32(np.float64(acc) + np.float64(x) * np.float64(y))
+
+
+def _warp_sum(lanes):
+    """vct::warp_sum: a butterfly over 32 lanes, offsets 16, 8, 4, 2, 1."""
+    v = np.asarray(lanes, np.float32)
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[np.arange(32) ^ o]).astype(np.float32)
+    return v[0]
+
+
+def _dot64(a, b):
+    """The kernel's dot64: value j into sum j mod 8 in order, the eight sums
+    added pairwise."""
+    sums = [np.float32(0)] * 8
+    for j in range(64):
+        sums[j % 8] = _fma(sums[j % 8], a[j], b[j])
+    return _pairwise(sums)
+
+
+def _emulate_beam_attention(q, gkv, pk, pv, valid, anc, t, k, dtype_bytes,
+                            k_new=None, v_new=None):
+    """numpy mirror of csrc/beam_attention.cu for one head of 64 (f32 data,
+    the ``dtype_bytes`` plan): per video, the staged K/V rows of each chunk,
+    each (beam, column) logit the kernel's dot64 (masked columns
+    -1e30, an ancestor outside the video masked), the warp softmax per beam
+    (32 lanes each summing columns lane, lane + 32, ..., then the butterfly),
+    AV by column groups l = g (mod groups) summed in order, the groups added
+    in order, the self column last."""
+    b_count, s0 = valid.shape
+    deferred = k_new is not None
+    out = np.zeros(q.shape, np.float32)
+    for b in range(b_count):
+        p = ba.plan(b_count, k, s0, gkv.shape[0], t, dtype_bytes, deferred)
+        lcols, row0 = s0 + p.steps, b * k
+        lg = np.zeros((k, lcols + 1), np.float32)
+        rows = np.zeros((k, lcols), np.int64)
+        staged = {}
+        for l0, l1 in p.chunks:
+            prefill = max(0, min(s0, l1) - l0)
+            g0 = max(l0, s0) - s0
+            gen = [(g0 + rr // k, row0 + rr % k) for rr in range((l1 - l0 - prefill) * k)]
+            for which, pre in ((0, pk), (1, pv)):
+                staged[l0, which] = np.concatenate(
+                    [pre[b, l0:l0 + prefill]] + [gkv[nn, which, wr][None] for nn, wr in gen])
+            for kq in range(k):
+                for l in range(l0, l1):
+                    if l < s0:
+                        vis, row = valid[b, l] > 0, l - l0
+                    else:
+                        kv = anc[row0 + kq, l - s0] - row0
+                        vis = 0 <= kv < k
+                        row = prefill + (l - s0 - g0) * k + (kv if vis else 0)
+                    rows[kq, l] = row
+                    dot = _dot64(q[row0 + kq], staged[l0, 0][row])
+                    lg[kq, l] = dot * np.float32(0.125) if vis else np.float32(-1e30)
+        if deferred:
+            for kq in range(k):
+                lg[kq, lcols] = _dot64(q[row0 + kq], k_new[row0 + kq]) * np.float32(0.125)
+        ncols = lcols + int(deferred)
+        for kq in range(k):
+            row = lg[kq, :ncols]
+            mx = row.max()
+            lanes = [np.float32(0)] * 32
+            for c in range(ncols):
+                lanes[c % 32] = np.float32(lanes[c % 32] + np.exp(row[c] - mx, dtype=np.float32))
+            lg[kq, :ncols] = np.exp(row - mx, dtype=np.float32) / _warp_sum(lanes)
+        for kq in range(k):
+            partials = []
+            for g in range(p.groups):
+                acc = np.zeros(64, np.float32)
+                for l0, l1 in p.chunks:
+                    for l in range(l0, l1):
+                        if l % p.groups == g:
+                            acc = (np.float64(acc) + np.float64(lg[kq, l])
+                                   * np.float64(staged[l0, 1][rows[kq, l]])).astype(np.float32)
+                partials.append(acc)
+            s = np.zeros(64, np.float32)
+            for part in partials:
+                s = (s + part).astype(np.float32)
+            if deferred:
+                s = (np.float64(s) + np.float64(lg[kq, lcols]) * np.float64(v_new[row0 + kq])
+                     ).astype(np.float32)
+            out[row0 + kq] = s
+    return out
+
+
+@pytest.mark.parametrize("b,k,s0,n,t,dtype_bytes,deferred", [
+    (2, 3, 7, 6, 0, 4, False), (2, 3, 7, 6, 5, 4, True), (1, 4, 5, 6, 3, 2, True),
+    (2, 2, 0, 3, 0, 4, True), (1, 4, 160, 24, 20, 4, False), (1, 4, 160, 24, 20, 4, True)])
+def test_beam_attention_kernel_order_matches_jax(b, k, s0, n, t, dtype_bytes, deferred):
+    """One head of 64; the last two cases run 244 and 240 rows in f32, over
+    the 180-row limit: two chunks."""
+    rng = np.random.RandomState(14 + t)
+    r = b * k
+    q, k_new, v_new = (rng.randn(r, 64).astype(np.float32) for _ in range(3))
+    gkv = rng.randn(n, 2, r, 64).astype(np.float32)
+    pk, pv = (rng.randn(b, s0, 64).astype(np.float32) for _ in range(2))
+    valid = (rng.rand(b, s0) > 0.3).astype(np.int32)
+    anc = (np.arange(r)[:, None] // k * k + rng.randint(0, k, (r, n))).astype(np.int32)
+    anc[0, 0] = (anc[0, 0] + k) % (r + k)      # an ancestor outside the video: masked
+    extra = dict(k_new=k_new, v_new=v_new) if deferred else {}
+    got = _emulate_beam_attention(q, gkv, pk, pv, valid, anc, t, k, dtype_bytes, **extra)
+    cfg = jg2.GPT2Config(vocab_size=64, n_embd=64, n_layer=1, n_head=1, dtype=jnp.float32)
+    sel = jg2.ancestry_mask(jnp.asarray(anc), b, k, jnp.int32(t - 1 if deferred else t))
+    want = jg2._beam_attend(jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+                            jnp.asarray(gkv[:, 0]), jnp.asarray(gkv[:, 1]), jnp.asarray(valid),
+                            sel, jg2.head_block_mask(cfg), k, cfg,
+                            **{key: jnp.asarray(v) for key, v in extra.items()})
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5)
+    if s0 == 160:
+        assert len(ba.plan(b, k, s0, n, t, dtype_bytes, deferred).chunks) == 2
 
 
 # ---- the native loader, built by six processes at once -----------------------

@@ -141,9 +141,10 @@ def test_beam_attention_single_request_rows_match_xla_twin(t_val):
 
 
 def _gather_beam_attention(q, gkv, pk, pv, valid, anc, t, k, nh):
-    """numpy mirror of csrc/beam_attention.cu: per (row, head), the valid
-    prefill columns of the row's video plus the ONE column anc[r, nn] wrote
-    at each step nn <= t, one softmax, AV."""
+    """The ancestor-column gather csrc/beam_attention.cu computes, per (row,
+    head): the valid prefill columns of the row's video plus the ONE column
+    anc[r, nn] wrote at each step nn <= t, one softmax, AV (the kernel's own
+    order is mirrored in tests/test_torch_kernel_plans.py)."""
     r, h = q.shape
     hd = h // nh
     s0 = pk.shape[1]

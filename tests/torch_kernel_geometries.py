@@ -1,7 +1,8 @@
-"""Geometries swept by the launch-plan tests of the fused_pool and
-prefix_projector kernels: on the CPU (tests/test_torch_kernel_plans.py, the
-plans alone) and on the GPU (tests/test_torch_cuda_kernels.py, the kernels
-against their plain versions)."""
+"""Geometries swept by the launch-plan tests of the fused_pool,
+prefix_projector and beam_attention kernels: on the CPU
+(tests/test_torch_kernel_plans.py, the plans alone) and on the GPU
+(tests/test_torch_cuda_kernels.py, the kernels against their plain
+versions)."""
 
 POOL_GEOMETRIES = [(batch, frames, seq, h) for batch in (1, 4, 16) for frames in (1, 8)
                    for seq in (2, 197) for h in (64, 100, 768, 770)]
@@ -10,3 +11,9 @@ POOL_GEOMETRIES = [(batch, frames, seq, h) for batch in (1, 4, 16) for frames in
 PROJECTOR_GEOMETRIES = [(rows, din, dout) for rows in (1, 4, 8, 64, 65, 300)
                         for din in (100, 256) for dout in (3000, 3072)]
 """(R, din, dout) of x [R, din] @ W [din, dout]."""
+
+BEAM_GEOMETRIES = [(videos, beams, s0, n) for videos, beams in ((1, 1), (2, 2), (2, 3), (1, 4))
+                   for s0 in (1, 7, 48, 128) for n in (1, 24, 40, 64)]
+"""(B, K, S0, N) of one beam-attention layer: q [B*K, H], prefill [B, S0, H],
+generated cache [N, 2, B*K, H]; the CPU sweep takes every step t < N in both
+modes, the GPU t = 0, N/2 and N-1."""

@@ -1,12 +1,13 @@
-"""Where one request's time goes on the GPU, for each greedy/sampled decode
-configuration of the port.
+"""Where one request's time goes on the GPU, for each decode configuration
+of the port.
 
     python -m video_caption_tpu_torch.cli.profile_request [--requests 6] [--trace-dir DIR]
 
 Builds the full-width engine (ViT-B/16 + GPT-2 124M, seeded random bf16
 weights, 16 frames of 224x224 JPEGs, core presets) once per configuration:
-the default, ``compile.use_pallas_decode_attention`` and
-``compile.use_pallas_decode_layer``, all on the same weights. For each:
+the default, ``compile.use_pallas_decode_attention``,
+``compile.use_pallas_decode_layer`` and
+``compile.deferred_decode_cache_write``, all on the same weights. For each:
 
 1. stage times, the median over ``--requests`` requests with a synchronise
    after each stage (host clock): frame load and upload, the visual branch
@@ -15,7 +16,9 @@ the default, ``compile.use_pallas_decode_attention`` and
    number of device kernels, their summed device time, the device busy
    share (the union of kernel intervals over the profiled span), the
    device time by kernel name (the 12 largest) and that of every one of the
-   port's own kernels.
+   port's own kernels;
+3. each decode group alone under ``torch.profiler``: its kernels, device
+   time and busy share.
 
 Prints one JSON object per configuration; with ``--trace-dir`` also writes
 a Chrome trace per configuration. Needs an NVIDIA GPU: without one it exits
@@ -39,7 +42,8 @@ import torch
 
 from video_caption_tpu_torch.ops import build
 
-CONFIGS = ("default", "use_pallas_decode_attention", "use_pallas_decode_layer")
+CONFIGS = ("default", "use_pallas_decode_attention", "use_pallas_decode_layer",
+           "deferred_decode_cache_write")
 
 
 def make_videos(root: Path, count: int, frames: int, size: int, seed: int):
@@ -69,8 +73,9 @@ def _timed(fn):
     return out, (time.perf_counter() - t0) * 1000
 
 
-def stage_times(engine, frames_dir: str) -> dict:
-    """ms of each stage of one request, run stage by stage."""
+def decode_groups(engine) -> dict:
+    """{name: the (preset, prompt) pairs of one decode group} of the
+    engine's three presets (presets with the same policy decode together)."""
     from video_caption_tpu_torch.decode.presets import preset_to_kwargs
 
     c = engine.config
@@ -78,13 +83,27 @@ def stage_times(engine, frames_dir: str) -> dict:
     groups = defaultdict(list)
     for preset, prompt in pairs:
         groups[json.dumps(preset_to_kwargs(preset), sort_keys=True)].append((preset, prompt))
+    return {f"group {m[0][0]} x{len(m)}": m for m in groups.values()}
+
+
+def stage_times(engine, frames_dir: str) -> dict:
+    """ms of each stage of one request, run stage by stage."""
     video, ms = _timed(lambda: engine.load_video(frames_dir))
     out = {"frame_load": ms}
     prefix, out["visual"] = _timed(lambda: engine.compute_prefix(video))
-    for members in groups.values():
-        name = f"group {members[0][0]} x{len(members)}"
+    for name, members in decode_groups(engine).items():
         _, out[name] = _timed(lambda: engine.generate_presets(prefix, members))
     out["total"] = sum(out.values())
+    return out
+
+
+def group_profiles(engine, frames_dir: str) -> dict:
+    """Kernels, device ms and busy share of each decode group alone."""
+    prefix = engine.compute_prefix(engine.load_video(frames_dir))
+    out = {}
+    for name, members in decode_groups(engine).items():
+        prof = profile_call(lambda: engine.generate_presets(prefix, members))
+        out[name] = {k: prof[k] for k in ("kernels", "device_ms", "busy_share", "port_kernels")}
     return out
 
 
@@ -175,7 +194,8 @@ def main(argv=None) -> int:
                                   trace_dir / f"{name}.json" if trace_dir else None)
             print(json.dumps({"config": name, "device": torch.cuda.get_device_name(0),
                               "requests": args.requests, "stage_ms_median": stages,
-                              "profile": prof}), flush=True)
+                              "profile": prof, "groups": group_profiles(engine, dirs[0])}),
+                  flush=True)
     return 0
 
 

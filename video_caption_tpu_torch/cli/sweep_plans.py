@@ -1,5 +1,6 @@
-"""Device times of the fused_pool and prefix_projector kernels under every
-candidate launch geometry, beside the one their ``plan`` picks.
+"""Device times of the fused_pool, prefix_projector and beam_attention
+kernels under every candidate launch geometry, beside the one their
+``plan`` picks.
 
     python video_caption_tpu_torch/cli/sweep_plans.py [--runs 25]
 
@@ -7,7 +8,11 @@ fused_pool at the shapes of ``cli/time_kernels.py`` (gap f32 [32,197,768],
 gap bf16 [128,197,768], cls bf16 [16,197,768]) under every tile of 4, 8,
 16 or 32 column groups and 1, 2, 4 or 8 splits; prefix_projector
 x [R, 256] @ W [256, 3072] bf16 at R = 1, 4, 8, 64 under 1, 2, 4 or 8 row
-groups. Each geometry is checked against the plain version, then timed by
+groups; beam_attention (bf16, both modes) at R = 6 (S0 = 48, N = 24, t =
+12), R = 4 (N = 40, t = 20 and 39) and R = 192 (64 videos x 3 beams, t =
+12), staging all its K/V rows at once (one chunk, the plan) or fewer rows
+at a time, in 2, 3 or 4 chunks. Each geometry is checked against the plain
+version, then timed by
 ``ops/selfcheck.median_ms``: warm L2 (``ms``) and cold (``cold_ms``). Prints
 one JSON object per geometry (``"plan": true`` marks the wrapper's choice),
 then the card's name and power limit. Needs an NVIDIA GPU: without one it
@@ -23,6 +28,7 @@ from pathlib import Path
 
 POOL = ((4, 8, "gap", "f32"), (16, 8, "gap", "bf16"), (2, 8, "cls", "bf16"))
 PROJECTOR_ROWS = (1, 4, 8, 64)
+BEAM = ((2, 3, 48, 24, 12), (1, 4, 48, 40, 20), (1, 4, 48, 40, 39), (64, 3, 48, 24, 12))
 
 
 def main(argv=None) -> int:
@@ -36,10 +42,11 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    from video_caption_tpu_torch.ops import beam_attention as ba
     from video_caption_tpu_torch.ops import build
     from video_caption_tpu_torch.ops import fused_pool as fpl
     from video_caption_tpu_torch.ops import prefix_projector as pp
-    from video_caption_tpu_torch.ops.selfcheck import median_ms
+    from video_caption_tpu_torch.ops.selfcheck import beam_attention_case, median_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -92,6 +99,37 @@ def main(argv=None) -> int:
                     "rowgroups": rowgroups, "rows_per_thread": per_thread,
                     "plan": (rowgroups, per_thread) == (chosen.rowgroups, chosen.rows_per_thread)},
                    run, lambda: torch.allclose(y, want, atol=1e-4, rtol=1e-4))
+    for videos, beams, prefill, steps, t in BEAM:
+        q, k_new, v_new, gkv, pk, pv, valid, anc = beam_attention_case(
+            videos, beams, prefill, steps)
+        r, h = q.shape
+        out = torch.empty((r, h), dtype=q.dtype, device="cuda")
+        for deferred in (False, True):
+            kw = dict(k_new=k_new, v_new=v_new) if deferred else {}
+            want = ba.beam_attention_ref(q, gkv, pk, pv, valid, anc, t, beams, 12, **kw).float()
+            chosen = ba.plan(videos, beams, prefill, steps, t, 2, deferred)
+            seen = set()
+            for split in (1, 2, 3, 4):
+                rows = max(min(chosen.rows, beams), -(-chosen.rows // split))
+                p = ba.plan(videos, beams, prefill, steps, t, 2, deferred, stage_rows=rows)
+                if len(p.chunks) in seen:
+                    continue
+                seen.add(len(p.chunks))
+
+                def run(p=p, deferred=deferred):
+                    build.launch("vct_beam_attention", q.data_ptr(), q.stride(0), gkv.data_ptr(),
+                                 pk.data_ptr(), pv.data_ptr(), valid.data_ptr(), anc.data_ptr(),
+                                 k_new.data_ptr() if deferred else None,
+                                 v_new.data_ptr() if deferred else None, k_new.stride(0), out.data_ptr(),
+                                 r, h, 12, beams, prefill, steps, t, int(deferred), p.stage_rows,
+                                 p.smem, build.dtype_code(q.dtype), build.stream_of(q))
+
+                report({"kernel": "beam_attention",
+                        "shape": f"R={r} (B={videos},K={beams}) S0={prefill} N={steps} t={t} bf16"
+                                 f"{' deferred' if deferred else ''}",
+                        "stage_rows": p.stage_rows, "chunks": len(p.chunks), "smem": p.smem,
+                        "plan": p == chosen},
+                       run, lambda: torch.allclose(out.float(), want, atol=1e-2, rtol=1e-2))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")

@@ -1,8 +1,8 @@
-"""Times of the encoder_attention, lm_head, fused_pool and prefix_projector
-wrappers of one checkout of the port, at the main path's shapes, by this
-checkout's timer.
+"""Times of the encoder_attention, lm_head, fused_pool, prefix_projector and
+beam_attention wrappers of one checkout of the port, at the main path's
+shapes, by this checkout's timer.
 
-    python video_caption_tpu_torch/cli/time_kernels.py [--checkout DIR] [--runs 25]
+    python video_caption_tpu_torch/cli/time_kernels.py [--checkout DIR] [--runs 25] [--only NAME]
 
 The port is imported from DIR (default: the checkout that holds this file),
 so two commits can be timed on one card in one call, in turns (parent,
@@ -21,13 +21,16 @@ f32), which the port never calls; a last row times a kernel that spins for
 one cycle, the floor of this timer. The inputs are those of
 ``ops/selfcheck.py``: qkv [N, 197, 2304] from a seeded normal, x [R, 768]
 and wte_t [768, 50304] * 0.02 in bf16, tokens [B*T, 197, 768], x [R, 256]
-* 0.4 with W [256, 3072] * 0.02 in bf16. Prints one JSON object per shape,
+* 0.4 with W [256, 3072] * 0.02 in bf16, and ``selfcheck.beam_attention_case``
+(bf16, both modes; the deferred rows only where the checkout's wrapper takes
+``k_new``). Prints one JSON object per shape,
 then the card's name and power limit. Needs an NVIDIA GPU: without one it
 exits with an error and times nothing.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -37,6 +40,8 @@ ENCODER = ((16, "bf16"), (128, "bf16"), (32, "bf16"), (32, "f32"))
 LM_HEAD_ROWS = (1, 6, 9, 64, 192, 256)
 POOL = ((4, 8, "gap", "f32"), (16, 8, "gap", "bf16"), (2, 8, "cls", "bf16"))   # B, T, mode
 PROJECTOR_ROWS = (1, 4, 8, 64)
+BEAM = ((2, 3, 48, 24, (12, 0, 23)), (1, 4, 48, 40, (20, 0, 39)),   # B, K, S0, N, steps t
+        (64, 3, 48, 24, (12,)))
 
 
 def main(argv=None) -> int:
@@ -44,6 +49,7 @@ def main(argv=None) -> int:
     parser.add_argument("--checkout", default=str(Path(__file__).resolve().parents[2]),
                         help="root of the checkout whose port is timed")
     parser.add_argument("--runs", type=int, default=25)
+    parser.add_argument("--only", help="time this kernel's rows alone (and the floor)")
     args = parser.parse_args(argv)
     import torch
 
@@ -52,13 +58,14 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
-    from video_caption_tpu_torch.ops.selfcheck import median_ms
+    from video_caption_tpu_torch.ops.selfcheck import beam_attention_case, median_ms
 
     # drop this checkout's port so that the wrappers come from DIR
     for name in [m for m in sys.modules if m.split(".")[0] == "video_caption_tpu_torch"]:
         del sys.modules[name]
     root = Path(args.checkout).resolve()
     sys.path.insert(0, str(root))
+    from video_caption_tpu_torch.ops import beam_attention as ba
     from video_caption_tpu_torch.ops import encoder_attention as ea
     from video_caption_tpu_torch.ops import fused_pool as fpl
     from video_caption_tpu_torch.ops import lm_head as lmh
@@ -70,6 +77,8 @@ def main(argv=None) -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def report(kernel, shape, fn, checkout=str(root)):
+        if args.only and kernel not in (args.only, "launch floor"):
+            return
         print(json.dumps({"checkout": checkout, "kernel": kernel, "shape": shape,
                           "ms": median_ms(fn, args.runs),
                           "cold_ms": median_ms(fn, args.runs, cold=True),
@@ -102,6 +111,17 @@ def main(argv=None) -> int:
         shape = f"x[{rows},256] f32 @ w[256,3072] bf16"
         report("prefix_projector", shape, lambda: pp.prefix_project(x, w, bias))
         report("prefix_projector", shape, lambda: torch.addmm(b32, x, w32), "library")
+    modes = (False, True) if "k_new" in inspect.signature(ba.beam_attention).parameters \
+        else (False,)
+    for videos, beams, prefill, steps, ts in BEAM:
+        q, k_new, v_new, gkv, pk, pv, valid, anc = beam_attention_case(
+            videos, beams, prefill, steps)
+        for t in ts:
+            for deferred in modes:
+                kw = dict(k_new=k_new, v_new=v_new) if deferred else {}
+                report("beam_attention", f"R={videos * beams} (B={videos},K={beams}) S0={prefill} "
+                       f"N={steps} t={t} bf16{' deferred' if deferred else ''}",
+                       lambda: ba.beam_attention(q, gkv, pk, pv, valid, anc, t, beams, 12, **kw))
     # the timer's floor: a kernel that spins for one cycle
     report("launch floor", "torch.cuda._sleep(1)", lambda: torch.cuda._sleep(1), "library")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

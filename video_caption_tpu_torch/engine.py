@@ -9,7 +9,10 @@ best-of-3. Every kernel of that path is a hand-written CUDA kernel on the
 GPU (ops/), and its plain PyTorch version on the CPU. The compile switches
 ``use_pallas_decode_attention`` and ``use_pallas_decode_layer`` (off by
 default, as in the JAX package) put the greedy/sampled decode steps through
-the decode-attention or the whole-step decode-layer kernel.
+the decode-attention or the whole-step decode-layer kernel;
+``deferred_decode_cache_write`` (off by default) writes each decode step's
+K/V once after the layer loop, with the beam-attention kernel in its
+deferred mode.
 
 Not ported yet: the device video LRU, the overlapped chunk upload, the
 fused/AOT request programs, the unified mixed-policy decode (its tokens are
@@ -49,7 +52,8 @@ def model_config_from_inference(config: InferenceConfig) -> cm.CaptionModelConfi
         vit=vt.ViTConfig(image_size=config.image_size, dtype=dtype),
         gpt2=g2.GPT2Config(dtype=dtype,
                            use_pallas_decode=config.compile.use_pallas_decode_attention,
-                           use_pallas_decode_layer=config.compile.use_pallas_decode_layer),
+                           use_pallas_decode_layer=config.compile.use_pallas_decode_layer,
+                           deferred_cache_write=config.compile.deferred_decode_cache_write),
         prefix_len=config.prefix_len,
         ln_scale=config.ln_scale,
         in_weight=config.in_weight,

@@ -18,7 +18,14 @@ cache layouts of the JAX package:
   (ops/beam_attention.py) through the ancestry index ``anc``.
 
 Both decode switches are off by default, as in the JAX package; with both
-set, the flat cache (decode_layer) takes the step.
+set, the flat cache (decode_layer) takes the step. ``deferred_cache_write``
+(off by default, as there) holds each layer's new K/V of a decode step and
+writes them all in one store after the layer loop; attention then reads the
+cache strictly before the step and takes the step's own K/V as an extra
+column (``_attend_deferred`` for K=1, the beam-attention kernel's deferred
+mode for beams). The flat cache still takes precedence, and with
+``use_pallas_decode`` set as well the K=1 step takes ``_attend_deferred``,
+as in the JAX package.
 
 Unlike the JAX package, the caches are updated IN PLACE: a forward writes
 its new K/V rows into the buffer it was given and returns the same dict.
@@ -63,6 +70,10 @@ class GPT2Config:
     use_pallas_decode_layer: bool = False
     """K=1 decode steps through the whole-step decode-layer kernel over the
     flat ``kvf`` cache (init_cache). Takes precedence over use_pallas_decode."""
+    deferred_cache_write: bool = False
+    """Decode steps hold every layer's new K/V and write the whole stack
+    with one store after the layer loop; attention takes the current token
+    as an explicit extra column. Tokens are those of the per-layer writes."""
 
     @property
     def head_dim(self) -> int:
@@ -189,6 +200,29 @@ def _attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return out.reshape(b, s, cfg.n_embd)
 
 
+def _attend_deferred(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     k_new: torch.Tensor, v_new: torch.Tensor, offset: int,
+                     valid_mask: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:
+    """Single-token attention of the deferred-write step: q, k_new, v_new
+    [B,1,nh,hd], caches [B,max_len,nh,hd] WITHOUT the new token -> [B,1,H]
+    (before the output projection). The cache part is strictly causal (col <
+    offset: the current column is stale) and the new token's self term is
+    one extra column, last; the masking and softmax formula of ``_attend``."""
+    dt = cfg.dtype
+    b, max_len = q.shape[0], k_cache.shape[1]
+    scale = cfg.head_dim ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
+    col = torch.arange(max_len, device=q.device)
+    mask = (col < offset)[None, None, None, :] & (valid_mask[:, None, None, :] > 0)
+    logits = torch.where(mask, logits, _NEG)                              # [B,nh,1,max_len]
+    lg_self = torch.einsum("bqhd,bqhd->bhq", q.float(),
+                           k_new.to(q.dtype).float())[..., None] * scale  # [B,nh,1,1]
+    attn = torch.softmax(torch.cat([logits, lg_self], dim=-1), dim=-1).to(dt)
+    out = torch.einsum("bhqk,bkhd->bqhd", attn[..., :max_len], v_cache.to(dt))
+    out = out + attn[..., max_len:].permute(0, 3, 1, 2) * v_new.to(dt)
+    return out.reshape(b, 1, cfg.n_embd)
+
+
 def gpt2_forward(
     params: Params,
     inputs_embeds: torch.Tensor,   # [B,S,H]
@@ -214,15 +248,25 @@ def gpt2_forward(
     b, s = x.shape[:2]
     kv = cache["kv"]
     blocks = params["blocks"]
+    deferred = cfg.deferred_cache_write and s == 1
+    kv_news = []
     for layer in range(cfg.n_layer):
         blk = {k: v[layer] for k, v in blocks.items()}
         a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
         qkv = linear(a_in, blk["attn_w"], blk["attn_b"]).reshape(b, s, 3, cfg.n_head, cfg.head_dim)
-        kv[layer, :, offset:offset + s] = qkv[:, :, 1:3].to(kv.dtype)
-        a_out = _attend(qkv[:, :, 0], kv[layer, :, :, 0], kv[layer, :, :, 1],
-                        offset, valid_mask, cfg)
+        if deferred:
+            # the new K/V wait for one stacked write after the loop
+            kv_news.append(qkv[:, 0, 1:3])
+            a_out = _attend_deferred(qkv[:, :, 0], kv[layer, :, :, 0], kv[layer, :, :, 1],
+                                     qkv[:, :, 1], qkv[:, :, 2], offset, valid_mask, cfg)
+        else:
+            kv[layer, :, offset:offset + s] = qkv[:, :, 1:3].to(kv.dtype)
+            a_out = _attend(qkv[:, :, 0], kv[layer, :, :, 0], kv[layer, :, :, 1],
+                            offset, valid_mask, cfg)
         x = x + linear(a_out, blk["proj_w"], blk["proj_b"])
         x = x + _mlp(x, blk, cfg)
+    if deferred:
+        kv[:, :, offset] = torch.stack(kv_news).to(kv.dtype)     # [L, B, 2, nh, hd]
     if last_only and s > 1:
         x = x[:, -1:, :]
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
@@ -271,22 +315,34 @@ def gpt2_beam_step(
 ) -> Tuple[Tuple, Cache]:
     """One beam-search decode step over the split cache: writes step t's K/V
     at gen column t of every row, attends through the beam-attention kernel,
-    and returns (lm_stats 4-tuple with row stats, gen_cache)."""
+    and returns (lm_stats 4-tuple with row stats, gen_cache). With
+    ``deferred_cache_write`` the kernel runs in its deferred mode (the new
+    K/V as the self column) and all layers' K/V land in one [L, 2, R, H]
+    store after the layer loop."""
     dt = cfg.dtype
     r, h = token_embeds.shape
     x = token_embeds.to(dt) + _position_embeds(params, positions, dt)   # [R, H]
     gkv = gen_cache["kv"]
     pk_all, pv_all = prefill_cache["k"], prefill_cache["v"]
     blocks = params["blocks"]
+    deferred = cfg.deferred_cache_write
+    kv_news = []
     for layer in range(cfg.n_layer):
         blk = {k: v[layer] for k, v in blocks.items()}
         a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
         qkv = linear(a_in, blk["attn_w"], blk["attn_b"]).reshape(r, 3, h)
-        gkv[layer, t] = qkv[:, 1:3].transpose(0, 1).to(gkv.dtype)
+        if deferred:
+            kv_news.append(qkv[:, 1:3].transpose(0, 1))
+            new = dict(k_new=qkv[:, 1], v_new=qkv[:, 2])
+        else:
+            gkv[layer, t] = qkv[:, 1:3].transpose(0, 1).to(gkv.dtype)
+            new = {}
         out = beam_attention(qkv[:, 0], gkv[layer], pk_all[layer], pv_all[layer],
-                             prefill_valid, anc, t, num_beams, cfg.n_head)
+                             prefill_valid, anc, t, num_beams, cfg.n_head, **new)
         x = x + linear(out, blk["proj_w"], blk["proj_b"])
         x = x + _mlp(x, blk, cfg)
+    if deferred:
+        gkv[:, t] = torch.stack(kv_news).to(gkv.dtype)            # [L, 2, R, H]
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
     return lm_stats(x, wte_t, cfg, need_row_stats=True), gen_cache
 

@@ -40,8 +40,7 @@ SIGNATURES: Dict[str, List] = {
     "vct_encoder_attention": [_P, _P, _I, _I, _I, _I, _I, _P],
     "vct_prefix_project": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "vct_lm_head_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vct_beam_attention": [_P, _I, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vct_beam_attention": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P] + [_I] * 11 + [_P],
     "vct_decode_attention": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
     "vct_decode_layer": [_P] * 19 + [_I] * 6 + [_F, _I, _P],
     "vct_fused_pool": [_P, _P] + [_I] * 10 + [_P],

@@ -24,10 +24,12 @@ reads the counts of a main path run resets them after these checks.
 
 Tolerances (elementwise ``|kernel - plain| <= atol + rtol * |plain|``):
 
-- encoder_attention, beam_attention, decode_attention, and decode_layer
-  over one layer: bf16 outputs of O(1). Both sides round at the same points
+- encoder_attention, beam_attention (both modes), decode_attention, and
+  decode_layer over one layer: bf16 outputs of O(1). Both sides round at the same points
   but sum in another order, so a value can land one bf16 step (2^-8
   relative) apart: atol = rtol = 1e-2.
+- beam_attention in f32: f32 sums over 64 dims and up to ~200 columns in
+  another order: 1e-4 / 1e-4.
 - encoder_attention in f32: 3xTF32 products (each f32 product to about
   2^-20 relative) and f32 sums over 64 dims and 197 keys in another order:
   1e-4 / 1e-4.
@@ -290,32 +292,54 @@ def check_lm_head(rows: int, device="cuda", h: int = 768, vocab: int = 50257,
                    lambda: torch.matmul(x, w))      # the logits only, no statistics
 
 
-def check_beam_attention(videos: int, beams: int, prefill: int, steps: int, t: int,
-                         device="cuda", heads: int = 12, seed: int = 3) -> CheckResult:
+def beam_attention_case(videos: int, beams: int, prefill: int, steps: int, device="cuda",
+                        heads: int = 12, dtype=torch.bfloat16, seed: int = 3):
+    """Seeded inputs of one layer of a beam step: q, k_new, v_new [R, H] as
+    the strided thirds of one fused [R, 3H] QKV output, gkv [N, 2, R, H],
+    pk/pv [B, S0, H], valid [B, S0] (the first video left-padded by a
+    quarter), anc [R, N] rows of the row's own video."""
     g = _gen(device, seed)
     h, r = heads * 64, videos * beams
-    q = torch.randn((r, 3 * h), generator=g, device=device).bfloat16()[:, :h]  # strided rows
-    gkv = torch.randn((steps, 2, r, h), generator=g, device=device).bfloat16()
-    pk = torch.randn((videos, prefill, h), generator=g, device=device).bfloat16()
-    pv = torch.randn((videos, prefill, h), generator=g, device=device).bfloat16()
+    qkv = torch.randn((r, 3 * h), generator=g, device=device).to(dtype)
+    gkv = torch.randn((steps, 2, r, h), generator=g, device=device).to(dtype)
+    pk = torch.randn((videos, prefill, h), generator=g, device=device).to(dtype)
+    pv = torch.randn((videos, prefill, h), generator=g, device=device).to(dtype)
     valid = torch.ones((videos, prefill), dtype=torch.int32, device=device)
-    valid[0, : prefill // 4] = 0                        # a left-padded first video
+    valid[0, : prefill // 4] = 0
     own = torch.randint(0, beams, (r, steps), generator=g, device=device)
     anc = ((torch.arange(r, device=device)[:, None] // beams) * beams + own).to(torch.int32)
+    return qkv[:, :h], qkv[:, h:2 * h], qkv[:, 2 * h:], gkv, pk, pv, valid, anc
+
+
+def check_beam_attention(videos: int, beams: int, prefill: int, steps: int, t: int,
+                         device="cuda", heads: int = 12, deferred: bool = False,
+                         dtype=torch.bfloat16, seed: int = 3) -> CheckResult:
+    """One call of either mode; in f32 held to 1e-4 / 1e-4 (f32 sums over
+    64 dims and the columns in another order)."""
+    q, k_new, v_new, gkv, pk, pv, valid, anc = beam_attention_case(
+        videos, beams, prefill, steps, device, heads, dtype, seed)
+    r, h = q.shape
     args = (q, gkv, pk, pv, valid, anc, t, beams, heads)
-    got = ba.beam_attention(*args)
-    want = ba.beam_attention_ref(*args)
-    # what this input needs: the visible prefill rows of each video and the
+    kw = dict(k_new=k_new, v_new=v_new) if deferred else {}
+    got = ba.beam_attention(*args, **kw)
+    want = ba.beam_attention_ref(*args, **kw)
+    # what this input needs: the visible prefill rows of each video, the
     # distinct generated (step, writer row) columns the ancestry reaches
+    # (steps before t when deferred) and, deferred, the self column's k_new
+    # and v_new rows
+    read = t if deferred else t + 1
     vis = valid.sum(dim=1).repeat_interleave(beams)                     # [R]
-    gen_cols = torch.unique(anc[:, :t + 1].long()
-                            + torch.arange(t + 1, device=device) * r).numel()
-    bytes_ = (r * h + 2 * h * (int(valid.sum()) + gen_cols)) * q.element_size() \
-        + nbytes(valid, anc[:, :t + 1], got)
-    work = (bytes_, 4 * h * int((vis + t + 1).sum()), q.dtype)
-    return _result("beam_attention", f"R={r} (B={videos},K={beams}) S0={prefill} N={steps} t={t} bf16",
-                   [got], [want], lambda: ba.beam_attention(*args),
-                   lambda: ba.beam_attention_ref(*args), work)
+    gen_cols = torch.unique(anc[:, :read].long()
+                            + torch.arange(read, device=device) * r).numel()
+    rows = int(valid.sum()) + gen_cols + (r if deferred else 0)
+    bytes_ = (r * h + 2 * h * rows) * q.element_size() + nbytes(valid, anc[:, :read], got)
+    work = (bytes_, 4 * h * int((vis + read + int(deferred)).sum()), q.dtype)
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    tol = (1e-4, 1e-4, False) if dtype == torch.float32 else None
+    return _result("beam_attention", f"R={r} (B={videos},K={beams}) S0={prefill} N={steps} t={t} "
+                   f"{kind}{' deferred' if deferred else ''}",
+                   [got], [want], lambda: ba.beam_attention(*args, **kw),
+                   lambda: ba.beam_attention_ref(*args, **kw), work, tol=tol)
 
 
 def check_decode_attention(batch: int, length: int, device="cuda", heads: int = 12,
@@ -523,7 +547,9 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     64-column cache; for fused_pool, the joint training step's 4 videos x 8
     frames in f32). encoder_attention also runs at the trainers' 4 x 8
     frames (f32 in the joint step, bf16 in the mapper step), prefix_projector
-    at 1, 8, 4 (the mapper step) and 64 rows, lm_head from one row to 256."""
+    at 1, 8, 4 (the mapper step) and 64 rows, lm_head from one row to 256,
+    beam_attention in both modes at both single-request shapes (t = N/2, 0,
+    N-1) and at 64 videos x 3 beams (batched serving)."""
     out = []
     out += [check_encoder_attention(n, device) for n in (16, 128)]
     out += [check_encoder_attention(32, device, dtype=torch.float32),   # joint step
@@ -531,8 +557,10 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     out += [check_prefix_projector(b, device) for b in (1, 8, 4, 64)]   # 4: the mapper step
     out += [check_lm_head(r, device) for r in (6, 1, 9, 192, 64, 256)]
     for videos, beams, prefill, steps in ((2, 3, 48, 24), (1, 4, 48, 40)):
-        out += [check_beam_attention(videos, beams, prefill, steps, t, device)
-                for t in (steps // 2, 0, steps - 1)]
+        out += [check_beam_attention(videos, beams, prefill, steps, t, device, deferred=deferred)
+                for deferred in (False, True) for t in (steps // 2, 0, steps - 1)]
+    out += [check_beam_attention(64, 3, 48, 24, 12, device, deferred=deferred)   # batched
+            for deferred in (False, True)]
     out += [check_decode_attention(b, 64, device) for b in (1, 64)]
     out += [check_decode_layer(b, device) for b in (1, 8)]
     out += [check_decode_layer(b, device, n_layer=1) for b in (1, 8)]
