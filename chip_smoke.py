@@ -10,8 +10,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    per source, all started together; prints nvcc's register and spill
    report of every kernel and the counts of tensor-core instructions (HMMA,
    HGMMA), 16-byte global loads, generic loads (fused_pool's reads of a
-   cluster peer's shared memory) and cluster barriers in its SASS
-   (cuobjdump);
+   cluster peer's shared memory), cluster barriers and cp.async copies
+   (LDGSTS) in its SASS (cuobjdump);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main path's and the trainers' shapes (error beside its tolerance, median
    device times of the kernel, the plain version and, where there is one, a

@@ -9,7 +9,8 @@ false. Run them on the GPU with
 import pytest
 import torch
 
-from torch_kernel_geometries import BEAM_GEOMETRIES, POOL_GEOMETRIES, PROJECTOR_GEOMETRIES
+from torch_kernel_geometries import (BEAM_GEOMETRIES, DECODE_GEOMETRIES, POOL_GEOMETRIES,
+                                     PROJECTOR_GEOMETRIES)
 from video_caption_tpu_torch.ops import selfcheck
 
 pytestmark = pytest.mark.cuda
@@ -159,6 +160,60 @@ def test_beam_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                                 (2, 300, 12)])
 def test_decode_attention_kernel(cuda, batch, length, heads):
     _assert_ok(selfcheck.check_decode_attention(batch, length, cuda, heads=heads))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch,length", DECODE_GEOMETRIES)
+def test_decode_attention_kernel_geometry_sweep(cuda, batch, length, dtype):
+    _assert_ok(selfcheck.check_decode_attention(batch, length, cuda, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch,length,empty_row,stale", [
+    (1, 64, True, False), (2, 64, True, True), (2, 300, False, True), (3, 300, True, True),
+    (1, 1024, True, True), (2, 17, False, True)])
+def test_decode_attention_kernel_edge_cases(cuda, batch, length, empty_row, stale, dtype):
+    """A row with no visible column (the mean of its V rows) and columns
+    that are not visible holding 1e4 in K and V (they weigh exactly 0)."""
+    _assert_ok(selfcheck.check_decode_attention(batch, length, cuda, dtype=dtype,
+                                                empty_row=empty_row, stale=stale))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch,length,splits,stage_rows", [
+    (2, 300, 1, None), (2, 300, 2, None), (2, 300, 4, 19), (2, 300, 8, 5), (1, 64, 2, None),
+    (1, 64, 1, 16), (3, 17, 4, 1), (1, 1024, 8, 64), (1, 4096, None, None), (1, 4096, 1, None)])
+def test_decode_attention_kernel_forced_plans(cuda, batch, length, splits, stage_rows, dtype):
+    """Every split and chunking the plan can force, over stale rows; L=4096
+    chunks by itself (runs of 512 rows, 341 bf16 / 180 f32 staged at once)."""
+    _assert_ok(selfcheck.check_decode_attention(batch, length, cuda, dtype=dtype, stale=True,
+                                                splits=splits, stage_rows=stage_rows))
+
+
+def test_decode_attention_kernel_repeats_bit_equal(cuda):
+    from video_caption_tpu_torch.ops import decode_attention as da
+
+    q, k, v, valid = selfcheck.decode_attention_case(2, 1024, cuda)
+    assert da.plan(2, 12, 1024, 2).splits == 8
+    first = da.decode_attention(q, k, v, valid)
+    assert torch.equal(first, da.decode_attention(q, k, v, valid))
+
+
+def test_decode_attention_rejects_views_off_16_bytes(cuda):
+    from video_caption_tpu_torch.ops import decode_attention as da
+
+    q, k, v, valid = selfcheck.decode_attention_case(2, 64, cuda, heads=4)
+    buf = torch.zeros(1 + q.numel(), dtype=q.dtype, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):       # q 2 bytes past a boundary
+        da.decode_attention(buf[1:].view(q.shape), k, v, valid)
+    wide = torch.zeros(2, 64, 4 * 64 + 4, dtype=q.dtype, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):       # K rows 520 bytes apart
+        da.decode_attention(q, wide[:, :, :256].unflatten(2, (4, 64)), v, valid)
+    wide = torch.zeros(2 * 64 * 256 + 4, dtype=q.dtype, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):       # V 8 bytes past a boundary
+        da.decode_attention(q, k, wide[4:].view(2, 64, 4, 64), valid)
+    torch.testing.assert_close(da.decode_attention(q, k, v, valid),
+                               da.decode_attention_ref(q, k, v, valid), atol=1e-2, rtol=1e-2)
 
 
 @pytest.mark.parametrize("batch", [1, 2, 3, 8, 13])     # 13 rows: two passes of 8 over a tile

@@ -1,6 +1,6 @@
-"""The launch plans of the fused_pool, prefix_projector and beam_attention
-kernels on the CPU, and the port's C++ frame loader built by several
-processes at once.
+"""The launch plans of the fused_pool, prefix_projector, beam_attention and
+decode_attention kernels on the CPU, and the port's C++ frame loader built
+by several processes at once.
 
 - Each plan (ops/fused_pool.py::plan, ops/prefix_projector.py::plan) over a
   sweep of geometries: every pooled row, or every K index, row of x and
@@ -20,6 +20,16 @@ processes at once.
   mirror of the kernel (staged rows looked up through the ancestry, a dot per
   (beam, column) in eight interleaved sums, the warp softmax, AV by column
   groups, the self column last) against the JAX package's ``_beam_attend`` at 1e-5.
+- decode_attention (ops/decode_attention.py::plan) over B in {1, 3, 64} and
+  L in {1, 17, 64, 300, 1024} in both dtypes, as planned and under every
+  forced split and chunking: each cache row is read by exactly one block of
+  its (row, head), a cluster holds at most 8 blocks, the shared memory stays
+  within 227 KB; a torch mirror of the kernel's split-and-combine order (f32
+  logits from four 16-dim partial dots, the online softmax over chunks, AV
+  by column groups, the groups and warps added in order, the cluster's
+  blocks rescaled and added in rank order) against the Pallas kernel in
+  interpret mode at 1e-5 abs + 1e-4 rel, with split and chunked plans, a
+  row with no visible column and stale columns holding 1e4.
 - Six processes started from one barrier build the native loader into one
   empty cache; each loads it and decodes a JPEG equal to PIL's.
 """
@@ -34,11 +44,15 @@ import pytest
 import torch
 from PIL import Image
 
-from torch_kernel_geometries import BEAM_GEOMETRIES, POOL_GEOMETRIES, PROJECTOR_GEOMETRIES
+from jax.experimental.pallas import tpu as pltpu
+from torch_kernel_geometries import (BEAM_GEOMETRIES, DECODE_GEOMETRIES, POOL_GEOMETRIES,
+                                     PROJECTOR_GEOMETRIES)
 from video_caption_tpu.models import gpt2 as jg2
+from video_caption_tpu.ops.pallas import decode_attention as jda
 from video_caption_tpu.ops.pallas import fused_pool as jfp
 from video_caption_tpu.ops.pallas import prefix_projector as jpp
 from video_caption_tpu_torch.ops import beam_attention as ba
+from video_caption_tpu_torch.ops import decode_attention as da
 from video_caption_tpu_torch.ops import fused_pool as fpl
 from video_caption_tpu_torch.ops import prefix_projector as pp
 
@@ -360,6 +374,158 @@ def test_beam_attention_kernel_order_matches_jax(b, k, s0, n, t, dtype_bytes, de
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-5)
     if s0 == 160:
         assert len(ba.plan(b, k, s0, n, t, dtype_bytes, deferred).chunks) == 2
+
+
+# ---- decode_attention -------------------------------------------------------
+
+def _decode_smem(p: da.Plan, dtype_bytes: int) -> int:
+    """The shared memory the plan's regions need, counted afresh: K and V
+    stages of padded rows, q, valid and logits of a chunk, 4 warp maxima, 4
+    warps' (acc[64], sum) padded to 68 floats, and a cluster's 68 floats a
+    block in rank 0."""
+    def a16(x):
+        return -(-x // 16) * 16
+
+    return 2 * p.stage_rows * (64 * dtype_bytes + 16) + 64 * dtype_bytes \
+        + 2 * a16(4 * p.stage_rows) + 4 * 4 + 4 * 4 * 68 \
+        + (4 * 68 * p.splits if p.splits > 1 else 0)
+
+
+def _decode_plans(batch, length, dtype_bytes):
+    """The plan and every forced geometry: splits 1, 2, 4, 8 that leave no
+    block empty, each staging its run at once or in chunks of half of it."""
+    yield da.plan(batch, 12, length, dtype_bytes)
+    for splits in (1, 2, 4, 8):
+        cols = -(-length // splits)
+        if (splits - 1) * cols >= length:
+            with pytest.raises(ValueError):
+                da.plan(batch, 12, length, dtype_bytes, splits=splits)
+            continue
+        most = min(cols, da.stage_limit(dtype_bytes))
+        for stage_rows in {most, min(most, -(-cols // 2))}:
+            yield da.plan(batch, 12, length, dtype_bytes, splits=splits, stage_rows=stage_rows)
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+@pytest.mark.parametrize("batch,length", DECODE_GEOMETRIES)
+def test_decode_attention_plan_reads_every_row_once(batch, length, dtype_bytes):
+    for p in _decode_plans(batch, length, dtype_bytes):
+        counts = np.zeros(length, np.int64)
+        for begin, end in p.runs():
+            assert begin < end, p                      # no block without a column
+            chunks = p.chunks(begin, end)
+            assert all(c1 - c0 <= p.stage_rows for c0, c1 in chunks), p
+            for c0, c1 in chunks:
+                counts[c0:c1] += 1
+        assert (counts == 1).all(), p
+        assert 1 <= p.splits <= da.MAX_SPLITS and p.grid == (p.splits, 12, batch)
+        assert p.stage_rows <= da.stage_limit(dtype_bytes)
+        assert p.smem == _decode_smem(p, dtype_bytes) <= da.SMEM_LIMIT, p
+
+
+def test_decode_attention_plan_choices():
+    """One block per (row, head) at the request's B=1, L=64 and at B=64;
+    clusters where a block would hold more than 16 KB of K and V and the
+    card is not full; chunks of equal size beyond 96 KB of K and V a block,
+    or 64 KB once the grid holds more than two blocks an SM."""
+    assert da.stage_limit(2) == 341 and da.stage_limit(4) == 180
+    p = da.plan(1, 12, 64, 2)
+    assert (p.splits, p.stage_rows, p.runs()) == (1, 64, ((0, 64),))
+    assert da.plan(64, 12, 64, 2).splits == 1 and da.plan(64, 12, 1024, 2).splits == 1
+    assert da.plan(1, 12, 64, 4).splits == 2                  # 32 KB of f32 K and V
+    assert da.plan(2, 12, 300, 2).splits == 8 and da.plan(1, 12, 1024, 2).cols == 128
+    assert da.plan(1, 12, 4096, 2).chunks(0, 512) == ((0, 256), (256, 512))   # equal chunks
+    assert da.plan(64, 12, 300, 2).stage_rows == 150          # 64 KB stages: the card is full
+    assert da.plan(64, 12, 1024, 2).stage_rows == 205 and da.plan(2, 12, 1024, 2).cols == 128
+    with pytest.raises(ValueError):
+        da.plan(1, 12, 64, 2, splits=16)
+    with pytest.raises(ValueError):
+        da.plan(1, 12, 64, 2, stage_rows=65)
+
+
+def _emulate_decode_attention(q, k, v, valid, p: da.Plan) -> torch.Tensor:
+    """torch mirror of csrc/decode_attention.cu in f32 for all (row, head)
+    at once: per block of the plan, per chunk, logits from four 16-dim
+    partial dots added pairwise (select -1e30 where not visible), the
+    running max and the rescale of the sums (a factor of 0 clears them), p =
+    exp(l - m), AV by column groups (row r of a chunk in group r mod 16, in
+    order, p * v added only where p != 0); the 16 groups added pairwise in
+    fours (a warp), the 4 warps in order; then the cluster's blocks rescaled
+    by exp(m_r - M) (skipped where 0) and added in rank order."""
+    b, nh, hd = q.shape
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32)
+    qq = q.reshape(b, nh, 4, 16)
+    stats = []
+    for begin, end in p.runs():
+        acc = torch.zeros(b, nh, da.ROW_GROUPS, hd)
+        psum = torch.zeros(b, nh, da.ROW_GROUPS)
+        m_run = torch.full((b, nh), -torch.inf)
+        for c0, c1 in p.chunks(begin, end):
+            kk = k[:, c0:c1].reshape(b, c1 - c0, nh, 4, 16)
+            quarters = torch.einsum("bhqd,blhqd->bhlq", qq, kk)
+            dot = (quarters[..., 0] + quarters[..., 1]) + (quarters[..., 2] + quarters[..., 3])
+            lg = torch.where(valid[:, None, c0:c1] > 0, dot * scale, torch.tensor(-1e30))
+            m_new = torch.maximum(m_run, lg.amax(dim=-1))
+            f = torch.exp(m_run - m_new)
+            acc = torch.where(f[..., None, None] != 0, acc * f[..., None, None], 0.0)
+            psum = torch.where(f[..., None] != 0, psum * f[..., None], 0.0)
+            m_run = m_new
+            pr = torch.exp(lg - m_new[..., None])                      # [b, nh, n]
+            for r0 in range(0, c1 - c0, da.ROW_GROUPS):
+                rows = torch.arange(r0, min(c1 - c0, r0 + da.ROW_GROUPS))
+                pg = pr[:, :, rows]                                     # groups 0..len-1
+                vg = v[:, c0 + rows].permute(0, 2, 1, 3)                # [b, nh, g, hd]
+                n = len(rows)
+                acc[:, :, :n] = torch.where(pg[..., None] != 0, acc[:, :, :n] + pg[..., None] * vg,
+                                            acc[:, :, :n])
+                psum[:, :, :n] = torch.where(pg != 0, psum[:, :, :n] + pg, psum[:, :, :n])
+        o, s = torch.zeros(b, nh, hd), torch.zeros(b, nh)
+        for w in range(da.ROW_GROUPS // 4):
+            g = 4 * w
+            o = o + ((acc[:, :, g] + acc[:, :, g + 1]) + (acc[:, :, g + 2] + acc[:, :, g + 3]))
+            s = s + ((psum[:, :, g] + psum[:, :, g + 1]) + (psum[:, :, g + 2] + psum[:, :, g + 3]))
+        stats.append((o, m_run, s))
+    if p.splits == 1:
+        o, _, s = stats[0]
+        return o / s[..., None]
+    big = torch.stack([m for _, m, _ in stats]).amax(dim=0)
+    o, s = torch.zeros(b, nh, hd), torch.zeros(b, nh)
+    for o_r, m_r, s_r in stats:
+        w = torch.exp(m_r - big)
+        o = torch.where(w[..., None] != 0, o + o_r * w[..., None], o)
+        s = torch.where(w != 0, s + s_r * w, s)
+    return o / s[..., None]
+
+
+@pytest.mark.parametrize("b,nh,length,dtype_bytes,splits,stage_rows", [
+    (2, 2, 64, 2, None, None),      # the request's plan: one block, one chunk
+    (1, 2, 300, 2, None, None),     # 8 blocks of 38 columns
+    (2, 2, 300, 4, 4, 20),          # 4 blocks of 75 columns, chunks of 20
+    (3, 2, 17, 4, None, 5),         # one block, chunks of 5
+    (2, 1, 1024, 2, None, None)])   # 8 blocks of 128 columns
+def test_decode_attention_kernel_order_matches_pallas(b, nh, length, dtype_bytes, splits,
+                                                      stage_rows):
+    """Row 0 has no visible column (its output is the mean of its V rows,
+    stale ones included); row 1 is left-padded over 60% of the columns, so
+    leading blocks and chunks see none; every column that is not visible
+    holds 1e4 in K and V."""
+    rng = np.random.RandomState(15 + length)
+    q = rng.randn(b, nh, 64).astype(np.float32)
+    k, v = (rng.randn(b, length, nh, 64).astype(np.float32) for _ in range(2))
+    valid = (rng.rand(b, length) > 0.3).astype(np.int32)
+    valid[0] = 0
+    if b > 1:
+        valid[1, : length * 3 // 5] = 0
+    k[valid == 0] = 1e4
+    v[valid == 0] = 1e4
+    p = da.plan(b, nh, length, dtype_bytes, splits=splits, stage_rows=stage_rows)
+    assert (p.splits == 1 and p.stage_rows == length) == (length == 64)   # else split or chunked
+    got = _emulate_decode_attention(*(torch.from_numpy(x) for x in (q, k, v, valid)), p)
+    with pltpu.force_tpu_interpret_mode():
+        want = jda.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    jnp.asarray(valid))
+        assert jda.last_backend == "pallas"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-4)
 
 
 # ---- the native loader, built by six processes at once -----------------------

@@ -229,13 +229,14 @@ def test_count_tensor_core_instructions_reads_a_sass_listing():
         /*0020*/                   LDG.E R9, desc[UR10][R12.64] ;
         /*0030*/                   UCGABAR_ARV ;
         /*0040*/                   LD.E R2, desc[UR10][R16.64] ;
+        /*0050*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR10][R18.64] ;
                 Function : _Z6kernelC
         /*0000*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ ;
     """
     none = dict.fromkeys(build.SASS_PATTERNS, 0)
     assert build.count_instructions(sass, build.SASS_PATTERNS) == {
         "_Z6kernelA": {**none, "HMMA/HGMMA": 2},
-        "_Z6kernelB": {**none, "LDG.128": 1, "LD": 1, "UCGABAR": 1},
+        "_Z6kernelB": {**none, "LDG.128": 1, "LD": 1, "UCGABAR": 1, "LDGSTS": 1},
         "_Z6kernelC": {**none, "HMMA/HGMMA": 1}}
 
 

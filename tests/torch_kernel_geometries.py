@@ -1,5 +1,5 @@
 """Geometries swept by the launch-plan tests of the fused_pool,
-prefix_projector and beam_attention kernels: on the CPU
+prefix_projector, beam_attention and decode_attention kernels: on the CPU
 (tests/test_torch_kernel_plans.py, the plans alone) and on the GPU
 (tests/test_torch_cuda_kernels.py, the kernels against their plain
 versions)."""
@@ -17,3 +17,8 @@ BEAM_GEOMETRIES = [(videos, beams, s0, n) for videos, beams in ((1, 1), (2, 2), 
 """(B, K, S0, N) of one beam-attention layer: q [B*K, H], prefill [B, S0, H],
 generated cache [N, 2, B*K, H]; the CPU sweep takes every step t < N in both
 modes, the GPU t = 0, N/2 and N-1."""
+
+DECODE_GEOMETRIES = [(batch, length) for batch in (1, 3, 64) for length in (1, 17, 64, 300, 1024)]
+"""(B, L) of one decode-attention layer: q [B, nh, 64] over K/V [B, L, nh, 64];
+the CPU sweep checks the plan in bf16 and f32 at 12 heads, the GPU runs each
+through the kernel in both dtypes."""

@@ -1,8 +1,8 @@
-"""Device times of the fused_pool, prefix_projector and beam_attention
-kernels under every candidate launch geometry, beside the one their
-``plan`` picks.
+"""Device times of the fused_pool, prefix_projector, beam_attention and
+decode_attention kernels under every candidate launch geometry, beside the
+one their ``plan`` picks.
 
-    python video_caption_tpu_torch/cli/sweep_plans.py [--runs 25]
+    python video_caption_tpu_torch/cli/sweep_plans.py [--runs 25] [--only NAME]
 
 fused_pool at the shapes of ``cli/time_kernels.py`` (gap f32 [32,197,768],
 gap bf16 [128,197,768], cls bf16 [16,197,768]) under every tile of 4, 8,
@@ -11,8 +11,11 @@ x [R, 256] @ W [256, 3072] bf16 at R = 1, 4, 8, 64 under 1, 2, 4 or 8 row
 groups; beam_attention (bf16, both modes) at R = 6 (S0 = 48, N = 24, t =
 12), R = 4 (N = 40, t = 20 and 39) and R = 192 (64 videos x 3 beams, t =
 12), staging all its K/V rows at once (one chunk, the plan) or fewer rows
-at a time, in 2, 3 or 4 chunks. Each geometry is checked against the plain
-version, then timed by
+at a time, in 2, 3 or 4 chunks; decode_attention (bf16, 12 heads) at B=1
+and 64 over 64 columns, B=2 over 300, B=1 over 1024, B=64 over 300 and 1024,
+split over 1, 2, 4 or 8 blocks of a cluster, each block staging its run in
+the fewest equal chunks that fit (96 KB of K and V) and in up to three more.
+Each geometry is checked against the plain version, then timed by
 ``ops/selfcheck.median_ms``: warm L2 (``ms``) and cold (``cold_ms``). Prints
 one JSON object per geometry (``"plan": true`` marks the wrapper's choice),
 then the card's name and power limit. Needs an NVIDIA GPU: without one it
@@ -29,11 +32,13 @@ from pathlib import Path
 POOL = ((4, 8, "gap", "f32"), (16, 8, "gap", "bf16"), (2, 8, "cls", "bf16"))
 PROJECTOR_ROWS = (1, 4, 8, 64)
 BEAM = ((2, 3, 48, 24, 12), (1, 4, 48, 40, 20), (1, 4, 48, 40, 39), (64, 3, 48, 24, 12))
+DECODE = ((1, 64), (64, 64), (2, 300), (1, 1024), (64, 300), (64, 1024))   # B, L
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--runs", type=int, default=25)
+    parser.add_argument("--only", help="sweep this kernel's geometries alone")
     args = parser.parse_args(argv)
     import torch
 
@@ -44,12 +49,17 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     from video_caption_tpu_torch.ops import beam_attention as ba
     from video_caption_tpu_torch.ops import build
+    from video_caption_tpu_torch.ops import decode_attention as da
     from video_caption_tpu_torch.ops import fused_pool as fpl
     from video_caption_tpu_torch.ops import prefix_projector as pp
-    from video_caption_tpu_torch.ops.selfcheck import beam_attention_case, median_ms
+    from video_caption_tpu_torch.ops.selfcheck import (beam_attention_case,
+                                                       decode_attention_case, median_ms)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
+
+    def wanted(kernel):
+        return args.only in (None, kernel)
 
     def report(fields, fn, ok):
         fn()
@@ -57,7 +67,7 @@ def main(argv=None) -> int:
         print(json.dumps({**fields, "ok": ok(), "ms": median_ms(fn, args.runs),
                           "cold_ms": median_ms(fn, args.runs, cold=True)}), flush=True)
 
-    for b, t, mode, kind in POOL:
+    for b, t, mode, kind in POOL if wanted("fused_pool") else ():
         dtype = torch.bfloat16 if kind == "bf16" else torch.float32
         tokens = torch.randn((b * t, 197, 768), generator=g, device="cuda").to(dtype)
         want = fpl.fused_pool_ref(tokens, b, t, mode).float()
@@ -80,7 +90,7 @@ def main(argv=None) -> int:
                        run, lambda: torch.allclose(out.float(), want, atol=1e-2, rtol=1e-2))
     w = (torch.randn((256, 3072), generator=g, device="cuda") * 0.02).bfloat16()
     bias = (torch.randn((3072,), generator=g, device="cuda") * 0.02).bfloat16()
-    for rows in PROJECTOR_ROWS:
+    for rows in PROJECTOR_ROWS if wanted("prefix_projector") else ():
         x = torch.randn((rows, 256), generator=g, device="cuda") * 0.4
         y = torch.empty((rows, 3072), device="cuda")
         want = pp.prefix_project_ref(x, w, bias)
@@ -99,7 +109,7 @@ def main(argv=None) -> int:
                     "rowgroups": rowgroups, "rows_per_thread": per_thread,
                     "plan": (rowgroups, per_thread) == (chosen.rowgroups, chosen.rows_per_thread)},
                    run, lambda: torch.allclose(y, want, atol=1e-4, rtol=1e-4))
-    for videos, beams, prefill, steps, t in BEAM:
+    for videos, beams, prefill, steps, t in BEAM if wanted("beam_attention") else ():
         q, k_new, v_new, gkv, pk, pv, valid, anc = beam_attention_case(
             videos, beams, prefill, steps)
         r, h = q.shape
@@ -130,6 +140,31 @@ def main(argv=None) -> int:
                         "stage_rows": p.stage_rows, "chunks": len(p.chunks), "smem": p.smem,
                         "plan": p == chosen},
                        run, lambda: torch.allclose(out.float(), want, atol=1e-2, rtol=1e-2))
+    for batch, length in DECODE if wanted("decode_attention") else ():
+        q, k, v, valid = decode_attention_case(batch, length)
+        want = da.decode_attention_ref(q, k, v, valid).float()
+        strides = da._check(q, k, v, valid)
+        chosen = da.plan(batch, 12, length, 2)
+        for splits in (1, 2, 4, 8):
+            cols = -(-length // splits)
+            if (splits - 1) * cols >= length:
+                continue
+            most = min(cols, da.stage_limit(2))
+            for stage_rows in sorted({-(-cols // n) for n in range(-(-cols // most), 8)
+                                      if n <= cols}, reverse=True)[:4]:
+                p = da.plan(batch, 12, length, 2, splits=splits, stage_rows=stage_rows)
+                got = {}
+
+                def run(p=p, got=got):
+                    got["out"] = da._launch(q, k, v, valid, p, strides)
+
+                report({"kernel": "decode_attention",
+                        "shape": f"B={batch} L={length} 12x64 bf16 (strided K/V)",
+                        "splits": p.splits, "stage_rows": p.stage_rows,
+                        "chunks": -(-cols // p.stage_rows), "smem": p.smem,
+                        "plan": p == chosen},
+                       run, lambda got=got: torch.allclose(got["out"].float(), want, atol=1e-2,
+                                                           rtol=1e-2))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")

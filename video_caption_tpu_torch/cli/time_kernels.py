@@ -1,6 +1,6 @@
-"""Times of the encoder_attention, lm_head, fused_pool, prefix_projector and
-beam_attention wrappers of one checkout of the port, at the main path's
-shapes, by this checkout's timer.
+"""Times of the encoder_attention, lm_head, fused_pool, prefix_projector,
+beam_attention and decode_attention wrappers of one checkout of the port, at
+the main path's shapes, by this checkout's timer.
 
     python video_caption_tpu_torch/cli/time_kernels.py [--checkout DIR] [--runs 25] [--only NAME]
 
@@ -17,13 +17,15 @@ host enqueues it); ``cold_ms``, the same after 256 MB written and read back
 the call wherever that is the longer. fused_pool and prefix_projector also
 get a row for one PyTorch call of the same function (``checkout``
 "library": ``torch.mean`` over the pooled rows, ``torch.addmm`` on W in
-f32), which the port never calls; a last row times a kernel that spins for
-one cycle, the floor of this timer. The inputs are those of
+f32), and decode_attention one for SDPA with the same mask, which the port
+never calls; a last row times a kernel that spins for one cycle, the floor
+of this timer. The inputs are those of
 ``ops/selfcheck.py``: qkv [N, 197, 2304] from a seeded normal, x [R, 768]
 and wte_t [768, 50304] * 0.02 in bf16, tokens [B*T, 197, 768], x [R, 256]
 * 0.4 with W [256, 3072] * 0.02 in bf16, and ``selfcheck.beam_attention_case``
 (bf16, both modes; the deferred rows only where the checkout's wrapper takes
-``k_new``). Prints one JSON object per shape,
+``k_new``) and ``selfcheck.decode_attention_case`` (bf16, B=1 and 64 over a
+64-column cache, B=2 over 300, B=1 over 1024). Prints one JSON object per shape,
 then the card's name and power limit. Needs an NVIDIA GPU: without one it
 exits with an error and times nothing.
 """
@@ -42,6 +44,7 @@ POOL = ((4, 8, "gap", "f32"), (16, 8, "gap", "bf16"), (2, 8, "cls", "bf16"))   #
 PROJECTOR_ROWS = (1, 4, 8, 64)
 BEAM = ((2, 3, 48, 24, (12, 0, 23)), (1, 4, 48, 40, (20, 0, 39)),   # B, K, S0, N, steps t
         (64, 3, 48, 24, (12,)))
+DECODE = ((1, 64), (64, 64), (2, 300), (1, 1024))   # B, L of decode_attention
 
 
 def main(argv=None) -> int:
@@ -52,13 +55,15 @@ def main(argv=None) -> int:
     parser.add_argument("--only", help="time this kernel's rows alone (and the floor)")
     args = parser.parse_args(argv)
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("time_kernels: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
-    from video_caption_tpu_torch.ops.selfcheck import beam_attention_case, median_ms
+    from video_caption_tpu_torch.ops.selfcheck import (beam_attention_case,
+                                                       decode_attention_case, median_ms)
 
     # drop this checkout's port so that the wrappers come from DIR
     for name in [m for m in sys.modules if m.split(".")[0] == "video_caption_tpu_torch"]:
@@ -66,6 +71,7 @@ def main(argv=None) -> int:
     root = Path(args.checkout).resolve()
     sys.path.insert(0, str(root))
     from video_caption_tpu_torch.ops import beam_attention as ba
+    from video_caption_tpu_torch.ops import decode_attention as da
     from video_caption_tpu_torch.ops import encoder_attention as ea
     from video_caption_tpu_torch.ops import fused_pool as fpl
     from video_caption_tpu_torch.ops import lm_head as lmh
@@ -122,6 +128,14 @@ def main(argv=None) -> int:
                 report("beam_attention", f"R={videos * beams} (B={videos},K={beams}) S0={prefill} "
                        f"N={steps} t={t} bf16{' deferred' if deferred else ''}",
                        lambda: ba.beam_attention(q, gkv, pk, pv, valid, anc, t, beams, 12, **kw))
+    for batch, length in DECODE:
+        q, k, v, valid = decode_attention_case(batch, length)
+        mask = (valid > 0)[:, None, None, :]
+        qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        shape = f"B={batch} L={length} 12x64 bf16 (strided K/V)"
+        report("decode_attention", shape, lambda: da.decode_attention(q, k, v, valid))
+        report("decode_attention", shape,
+               lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), "library")
     # the timer's floor: a kernel that spins for one cycle
     report("launch floor", "torch.cuda._sleep(1)", lambda: torch.cuda._sleep(1), "library")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -41,7 +41,7 @@ SIGNATURES: Dict[str, List] = {
     "vct_prefix_project": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "vct_lm_head_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vct_beam_attention": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P] + [_I] * 11 + [_P],
-    "vct_decode_attention": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
+    "vct_decode_attention": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P] + [_I] * 7 + [_P],
     "vct_decode_layer": [_P] * 19 + [_I] * 6 + [_F, _I, _P],
     "vct_fused_pool": [_P, _P] + [_I] * 10 + [_P],
 }
@@ -166,6 +166,7 @@ SASS_PATTERNS = {
     "LDG.128": r"\bLDG\.E(\.\w+)*\.128\b",   # 16-byte global loads
     "LD": r"\bLD\.E\b",                       # generic loads (fused_pool: a cluster peer's shared memory)
     "UCGABAR": r"\bUCGABAR_ARV\b",             # cluster barrier arrivals
+    "LDGSTS": r"\bLDGSTS\b",                   # cp.async copies, global to shared
 }
 """Instructions counted per kernel in the built library's SASS."""
 

@@ -1,6 +1,6 @@
 // One (row, head) of single-token decode attention, computed by a whole
-// block. Shared by decode_attention.cu (the contiguous cache) and
-// decode_layer.cu (the flat cache of the fused decode step).
+// block: the attention of decode_layer.cu (the flat cache of the fused
+// decode step).
 #pragma once
 
 #include "common.cuh"
@@ -19,10 +19,9 @@ __host__ __device__ constexpr int attend_smem_floats(int L, int threads) {
 // V values at v + j * v_stride. Row j is visible when j <= last and
 // valid[j] > 0; invisible rows get the logit -1e30, as in the TPU kernels,
 // so they weigh exactly 0 (and their V is not read) unless every row is
-// invisible. Logits and softmax in f32; with kRoundProbs the probabilities
-// are rounded to T before the product with V (the fused decode step), else
-// they stay f32 (the decode-attention kernel). The product accumulates in
-// f32 and the output is rounded to T.
+// invisible. Logits and softmax in f32, the probabilities rounded to T
+// before the product with V (as the fused decode step of the TPU rounds
+// them); the product accumulates in f32 and the output is rounded to T.
 //
 // Work split: warps take cache rows (lanes split the head dim, one shuffle
 // reduction per row); the block normalises in shared memory; then each group
@@ -31,7 +30,7 @@ __host__ __device__ constexpr int attend_smem_floats(int L, int threads) {
 // multiple of 64. `smem` holds attend_smem_floats(L, blockDim.x) floats.
 // Pointers are not __restrict__: in the fused step the cache and q were
 // written by other blocks of the same grid.
-template <typename T, bool kRoundProbs>
+template <typename T>
 __device__ void attend_head(const T* q, const T* k, long k_stride, const T* v, long v_stride,
                             const int* valid, int L, int last, float scale, float* smem,
                             T* out) {
@@ -61,7 +60,7 @@ __device__ void attend_head(const T* q, const T* k, long k_stride, const T* v, l
   se = block_sum(se, scratch);
   for (int j = tid; j < L; j += blockDim.x) {
     const float p = expf(ps[j] - mx) / se;
-    ps[j] = kRoundProbs ? round_to<T>(p) : p;
+    ps[j] = round_to<T>(p);
   }
   __syncthreads();
 

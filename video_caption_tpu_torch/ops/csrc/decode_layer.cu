@@ -281,9 +281,9 @@ __device__ void attention_phase(const Params<T>& p, int layer, float* smem) {
     const int b = u / p.nh, head = u % p.nh;
     const long hoff = (long)head * vct::kAttendHeadDim;
     const T* k = kvf_l + (long)b * 2 * H + hoff;
-    vct::attend_head<T, true>(p.q + (long)b * H + hoff, k, row_stride, k + H, row_stride,
-                              p.valid + (long)b * p.max_len, p.max_len, p.offset, scale, smem,
-                              p.attn + (long)b * H + hoff);
+    vct::attend_head<T>(p.q + (long)b * H + hoff, k, row_stride, k + H, row_stride,
+                        p.valid + (long)b * p.max_len, p.max_len, p.offset, scale, smem,
+                        p.attn + (long)b * H + hoff);
   }
 }
 

@@ -29,7 +29,8 @@ Tolerances (elementwise ``|kernel - plain| <= atol + rtol * |plain|``):
   but sum in another order, so a value can land one bf16 step (2^-8
   relative) apart: atol = rtol = 1e-2.
 - beam_attention in f32: f32 sums over 64 dims and up to ~200 columns in
-  another order: 1e-4 / 1e-4.
+  another order: 1e-4 / 1e-4; decode_attention in f32 likewise over up to
+  L columns.
 - encoder_attention in f32: 3xTF32 products (each f32 product to about
   2^-20 relative) and f32 sums over 64 dims and 197 keys in another order:
   1e-4 / 1e-4.
@@ -342,30 +343,69 @@ def check_beam_attention(videos: int, beams: int, prefill: int, steps: int, t: i
                    lambda: ba.beam_attention_ref(*args, **kw), work, tol=tol)
 
 
-def check_decode_attention(batch: int, length: int, device="cuda", heads: int = 12,
-                           seed: int = 4) -> CheckResult:
-    """One layer of the sampled decode step: q a slice of the fused QKV
-    output, K and V strided views of one layer of the interleaved
-    [B, L, 2, nh, hd] cache; the last quarter of the columns not yet written
-    and the first row left-padded."""
+def decode_attention_case(batch: int, length: int, device="cuda", heads: int = 12,
+                          dtype=torch.bfloat16, seed: int = 4, empty_row: bool = False,
+                          stale: bool = False):
+    """Seeded inputs of one layer of the sampled decode step: q a slice of
+    the fused QKV output, K and V strided views of one layer of the
+    interleaved [B, L, 2, nh, hd] cache; the last quarter of the columns not
+    yet written and the first row left-padded by 3 (``empty_row``: no
+    visible column in the first row at all). ``stale``: every column that is
+    not visible holds 1e4 in K and V. Returns (q, k, v, valid)."""
     g = _gen(device, seed)
-    h = heads * 64
-    qkv = torch.randn((batch, 3, heads, 64), generator=g, device=device).bfloat16()
-    kv = torch.randn((batch, length, 2, heads, 64), generator=g, device=device).bfloat16()
-    q, k, v = qkv[:, 0], kv[:, :, 0], kv[:, :, 1]
+    qkv = torch.randn((batch, 3, heads, 64), generator=g, device=device).to(dtype)
+    kv = torch.randn((batch, length, 2, heads, 64), generator=g, device=device).to(dtype)
     valid = torch.ones((batch, length), dtype=torch.int32, device=device)
     valid[:, length - length // 4:] = 0
     valid[0, :3] = 0
-    got = da.decode_attention(q, k, v, valid)
+    if empty_row:
+        valid[0] = 0
+    if stale:
+        kv[valid == 0] = 1e4
+    return qkv[:, 0], kv[:, :, 0], kv[:, :, 1], valid
+
+
+def check_decode_attention(batch: int, length: int, device="cuda", heads: int = 12,
+                           seed: int = 4, dtype=torch.bfloat16, empty_row: bool = False,
+                           stale: bool = False, splits: Optional[int] = None,
+                           stage_rows: Optional[int] = None) -> CheckResult:
+    """One call on ``decode_attention_case``'s inputs; ``splits`` /
+    ``stage_rows`` launch a geometry other than the plan's (through the
+    wrapper's ``_launch``). In f32 held to 1e-4 / 1e-4 (f32 sums over 64
+    dims and L columns in another order)."""
+    q, k, v, valid = decode_attention_case(batch, length, device, heads, dtype, seed,
+                                           empty_row, stale)
+    h = heads * 64
+    p, forced = None, ""
+    if splits is not None or stage_rows is not None:
+        p = da.plan(batch, heads, length, q.element_size(), splits=splits,
+                    stage_rows=stage_rows)
+        strides = da._check(q, k, v, valid)
+        forced = f", {p.splits} splits x {p.stage_rows} staged rows"
+
+    def kernel():
+        if p is None:
+            return da.decode_attention(q, k, v, valid)
+        return da._launch(q, k, v, valid, p, strides)
+
+    got = kernel()
     want = da.decode_attention_ref(q, k, v, valid)
+    # what this input needs: q, valid, the output, the visible K and V rows,
+    # and every V row of a row with no visible column (their mean)
     live = int(valid.sum())
-    work = (nbytes(q, valid, got) + 2 * live * h * kv.element_size(), 4 * h * live, q.dtype)
+    blind = int((valid.sum(dim=1) == 0).sum()) * length
+    work = (nbytes(q, valid, got) + (2 * live + blind) * h * q.element_size(),
+            4 * h * live + 2 * h * blind, q.dtype)
     mask = (valid > 0)[:, None, None, :]
     qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    return _result("decode_attention", f"B={batch} L={length} {heads}x64 bf16 (strided K/V)",
-                   [got], [want], lambda: da.decode_attention(q, k, v, valid),
-                   lambda: da.decode_attention_ref(q, k, v, valid), work,
-                   lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    tol = (1e-4, 1e-4, False) if dtype == torch.float32 else None
+    edge = (", no visible column in row 0" if empty_row else "") \
+        + (", stale rows 1e4" if stale else "")
+    return _result("decode_attention",
+                   f"B={batch} L={length} {heads}x64 {kind} (strided K/V){edge}{forced}",
+                   [got], [want], kernel, lambda: da.decode_attention_ref(q, k, v, valid), work,
+                   lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), tol=tol)
 
 
 def decode_layer_case(batch: int, device="cuda", n_layer: int = 12, h: int = 768,
@@ -549,7 +589,10 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     frames (f32 in the joint step, bf16 in the mapper step), prefix_projector
     at 1, 8, 4 (the mapper step) and 64 rows, lm_head from one row to 256,
     beam_attention in both modes at both single-request shapes (t = N/2, 0,
-    N-1) and at 64 videos x 3 beams (batched serving)."""
+    N-1) and at 64 videos x 3 beams (batched serving), decode_attention at
+    B=64 (batched), at B=2, L=300 and B=1, L=1024 (split over a cluster), on
+    a row with no visible column, over stale rows of 1e4, in f32, and at
+    L=4096 (chunks)."""
     out = []
     out += [check_encoder_attention(n, device) for n in (16, 128)]
     out += [check_encoder_attention(32, device, dtype=torch.float32),   # joint step
@@ -562,6 +605,12 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     out += [check_beam_attention(64, 3, 48, 24, 12, device, deferred=deferred)   # batched
             for deferred in (False, True)]
     out += [check_decode_attention(b, 64, device) for b in (1, 64)]
+    out += [check_decode_attention(2, 300, device), check_decode_attention(1, 1024, device),
+            check_decode_attention(2, 64, device, empty_row=True),
+            check_decode_attention(2, 300, device, stale=True),
+            check_decode_attention(3, 300, device, dtype=torch.float32, empty_row=True,
+                                   stale=True),
+            check_decode_attention(1, 4096, device, stale=True)]   # runs of 512: two chunks
     out += [check_decode_layer(b, device) for b in (1, 8)]
     out += [check_decode_layer(b, device, n_layer=1) for b in (1, 8)]
     out += [check_decode_layer(8, device, dtype=torch.float32)]
