@@ -248,6 +248,38 @@ def test_decode_layer_writes_only_its_cache_row(cuda):
     assert not torch.equal(kvf[:, 17], before[:, 17])
 
 
+@pytest.mark.parametrize("batch,n_layer,max_len,offset,dtype,edge", [
+    (2, 1, 1, 0, torch.bfloat16, None), (2, 12, 1, 0, torch.float32, None),   # one cache row
+    (1, 1, 1024, 1000, torch.bfloat16, None),                  # K and V in chunks
+    (2, 12, 1024, 1000, torch.float32, None),
+    (3, 1, 64, 40, torch.bfloat16, "stale"), (3, 12, 64, 40, torch.float32, "stale"),
+    (3, 1, 64, 40, torch.bfloat16, "empty"), (3, 12, 64, 40, torch.float32, "empty"),
+    (2, 2, 1024, 1000, torch.float32, "empty"),                # the mean of 1024 V rows, chunked
+    (64, 1, 64, 40, torch.bfloat16, None), (64, 12, 64, 40, torch.float32, None)])
+def test_decode_layer_kernel_edges(cuda, batch, n_layer, max_len, offset, dtype, edge):
+    """Cache lengths 1 and 1024, rows the step cannot see holding 1e4, a row
+    with no visible column, and B=64 (eight passes over each slab)."""
+    _assert_ok(selfcheck.check_decode_layer(batch, cuda, n_layer=n_layer, max_len=max_len,
+                                            offset=offset, dtype=dtype, stale=edge == "stale",
+                                            empty_row=edge == "empty"))
+
+
+@pytest.mark.parametrize("batch,dtype", [(1, torch.bfloat16), (8, torch.float32)])
+def test_decode_layer_kernel_repeats_bit_equal(cuda, batch, dtype):
+    """The split phases add their partials in split order, whatever block
+    arrives last: two launches give the same bits, and the second finds its
+    tickets reset."""
+    from video_caption_tpu_torch.ops import decode_layer as dl
+
+    x, kvf, valid, blocks = selfcheck.decode_layer_case(batch, cuda, dtype=dtype)
+    assert max(dl.plan(batch, 768, 12, 64, x.element_size()).splits) > 1
+    first_kvf, again_kvf = kvf.clone(), kvf.clone()
+    first, _ = dl.gpt2_decode_step(x, first_kvf, valid, 40, blocks, 12)
+    again, _ = dl.gpt2_decode_step(x, again_kvf, valid, 40, blocks, 12)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first_kvf, again_kvf)
+
+
 @pytest.mark.parametrize("batch,frames,mode,dtype", [
     (4, 8, "gap", torch.float32), (16, 8, "gap", torch.bfloat16), (2, 8, "cls", torch.bfloat16),
     (1, 1, "gap", torch.float32), (3, 5, "cls", torch.float32)])

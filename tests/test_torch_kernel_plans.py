@@ -30,6 +30,15 @@ by several processes at once.
   blocks rescaled and added in rank order) against the Pallas kernel in
   interpret mode at 1e-5 abs + 1e-4 rel, with split and chunked plans, a
   row with no visible column and stale columns holding 1e4.
+- decode_layer (ops/decode_layer.py::plan) over B in {1, 3, 8, 64}, H in
+  {256, 768}, max_len in {1, 20, 64, 1024} in both dtypes, with 132 blocks
+  and with fewer: each weight element of each product phase belongs to
+  exactly one (tile, split) and each unit to one block, the grid is the
+  blocks given, the shared memory stays within 227 KB; a torch mirror of
+  the kernel's split-K order (per split: thread groups over strided rows,
+  a warp's groups pairwise, the warps in order; then the splits in order)
+  through a whole 2-layer step at width 128, against the Pallas kernel in
+  interpret mode at 1e-5 abs + 1e-4 rel.
 - Six processes started from one barrier build the native loader into one
   empty cache; each loads it and decodes a JPEG equal to PIL's.
 """
@@ -45,14 +54,16 @@ import torch
 from PIL import Image
 
 from jax.experimental.pallas import tpu as pltpu
-from torch_kernel_geometries import (BEAM_GEOMETRIES, DECODE_GEOMETRIES, POOL_GEOMETRIES,
-                                     PROJECTOR_GEOMETRIES)
+from torch_kernel_geometries import (BEAM_GEOMETRIES, DECODE_GEOMETRIES, LAYER_GEOMETRIES,
+                                     POOL_GEOMETRIES, PROJECTOR_GEOMETRIES)
 from video_caption_tpu.models import gpt2 as jg2
 from video_caption_tpu.ops.pallas import decode_attention as jda
+from video_caption_tpu.ops.pallas import decode_layer as jdl
 from video_caption_tpu.ops.pallas import fused_pool as jfp
 from video_caption_tpu.ops.pallas import prefix_projector as jpp
 from video_caption_tpu_torch.ops import beam_attention as ba
 from video_caption_tpu_torch.ops import decode_attention as da
+from video_caption_tpu_torch.ops import decode_layer as dl
 from video_caption_tpu_torch.ops import fused_pool as fpl
 from video_caption_tpu_torch.ops import prefix_projector as pp
 
@@ -526,6 +537,168 @@ def test_decode_attention_kernel_order_matches_pallas(b, nh, length, dtype_bytes
                                     jnp.asarray(valid))
         assert jda.last_backend == "pallas"
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-4)
+
+
+# ---- decode_layer ------------------------------------------------------------
+
+def _layer_smem(p: dl.Plan) -> int:
+    """The shared memory the plan needs, counted afresh: two slabs, then the
+    larger of the products' region (input rows, 8 warps' sums of 32
+    columns a row, 2 statistics a row, a flag, the residual's B x 32 tile)
+    and the attention's (padded K and V stages, q, valid flags, logits of
+    the whole row, block scratch, 8 warps' 68 floats)."""
+    def a16(x):
+        return -(-x // 16) * 16
+
+    es = p.dtype_bytes
+    gemv = a16(p.rows * p.xlen * es) + 4 * 8 * p.rows * 32 + a16(8 * p.rows) + 16 \
+        + a16(p.batch * 32 * es)
+    att = 2 * p.stage_rows * (64 * es + 16) + 64 * es + a16(4 * p.stage_rows) \
+        + a16(4 * p.max_len) + 128 + 4 * 8 * 68
+    return 2 * p.slab + max(gemv, att)
+
+
+@pytest.mark.parametrize("blocks", [132, 40])
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+@pytest.mark.parametrize("batch,h,max_len", LAYER_GEOMETRIES)
+def test_decode_layer_plan_takes_every_weight_once(batch, h, max_len, dtype_bytes, blocks):
+    p = dl.plan(batch, h, 12, max_len, dtype_bytes, blocks)
+    most = max([ph.units for ph in p.phases] + [batch * h // 64])
+    assert p.grid == min(blocks, most) and p.rows == dl.rows_per_pass(batch)
+    assert [(ph.k, ph.n) for ph in p.phases] == [(h, 3 * h), (h, h), (h, 4 * h), (4 * h, h)]
+    for ph in p.phases:
+        counts = np.zeros((ph.k, ph.n), np.int64)
+        owner = np.zeros(ph.units, np.int64)
+        for block in range(p.grid):
+            for u in range(block, ph.units, p.grid):   # the kernel's units of a block
+                owner[u] += 1
+                tile, split = u % ph.tiles, u // ph.tiles
+                k0, k1 = ph.runs()[split]
+                assert k0 < k1 and k1 - k0 <= ph.rows and k0 % 8 == 0, ph
+                assert dl.slab_bytes(ph.rows, dtype_bytes, ph.n != h and ph.k == h) <= p.slab, ph
+                counts[k0:k1, tile * 32:(tile + 1) * 32] += 1
+        assert (counts == 1).all() and (owner == 1).all(), ph
+        # a phase with fewer tiles than blocks gives the blocks more units
+        assert ph.units >= min(p.grid, ph.tiles)
+    assert p.xlen == max([h] + [ph.rows for ph in p.phases])
+    assert 1 <= p.stage_rows == min(max_len, dl.stage_limit(dtype_bytes))
+    assert p.smem == _layer_smem(p) <= dl.SMEM_LIMIT, p
+    split = [ph for ph in p.phases if ph.splits > 1]
+    assert p.part_floats == max([ph.units * batch * 32 for ph in split], default=1)
+
+
+def test_decode_layer_plan_choices():
+    """B=1 in bf16: one unit a block, out split 4 ways (3072 rows pass the
+    slab), a grid of 96 (no phase has more units); B=8 splits proj and out
+    over 120 blocks; B=64 splits every phase (8 passes a slab), several units
+    a block on all 132; one block takes the whole step; a forced split count
+    that leaves a split empty or passes the slab is refused."""
+    p = dl.plan(1, 768, 12, 64, 2)
+    assert p.splits == (1, 1, 1, 4) and p.grid == 96
+    assert p.slab == 769 * 32 * 2 + 8 * 768   # QKV, fc: rows, biases, LayerNorm weights
+    assert [ph.units for ph in p.phases] == [72, 24, 96, 96]
+    assert (dl.plan(8, 768, 12, 64, 2).splits, dl.plan(8, 768, 12, 64, 2).grid) == ((1, 3, 1, 5), 120)
+    assert dl.plan(64, 768, 12, 64, 2).splits == (3, 5, 4, 11)
+    assert dl.plan(64, 768, 12, 64, 2).grid == 132
+    one = dl.plan(1, 768, 12, 64, 2, blocks=1)
+    assert one.grid == 1 and one.splits == (1, 1, 1, 2)
+    assert dl.plan(1, 768, 12, 20000, 4).smem <= dl.SMEM_LIMIT    # the logits of a long row
+    with pytest.raises(ValueError):
+        dl.plan(1, 768, 12, 64, 2, splits=(1, 1, 1, 1))           # out: 3072 rows > the slab
+    with pytest.raises(ValueError):
+        dl.plan(1, 768, 12, 64, 2, splits=(97, 1, 1, 5))          # more splits than 8-row runs
+    with pytest.raises(ValueError):
+        dl.plan(1, 700, 12, 64, 2)                                # not heads of 64
+
+
+def _emulate_product(x: torch.Tensor, w: torch.Tensor, ph: dl.Split) -> torch.Tensor:
+    """x [B, K] @ w [K, N] in f32 in the order of csrc/decode_layer.cu (f32:
+    8 threads across a 32-column tile, 32 row groups): per split, group g
+    sums the split's rows g, g + 32, ... in order; the 4 groups of a warp
+    pairwise (the shuffle butterfly), the 8 warps in order from 0; then the
+    splits in order from 0 (the last arriver's sum)."""
+    groups, per_warp = 32, 4
+    total = None
+    for k0, k1 in ph.runs():
+        xs, ws = x[:, k0:k1], w[k0:k1]
+        sums = []
+        for g in range(groups):
+            acc = torch.zeros(x.shape[0], w.shape[1])
+            for k in range(g, k1 - k0, groups):
+                acc = acc + xs[:, k:k + 1] * ws[k]
+            sums.append(acc)
+        s = torch.zeros(x.shape[0], w.shape[1])
+        for wp in range(groups // per_warp):
+            g = sums[wp * per_warp:(wp + 1) * per_warp]
+            s = s + ((g[0] + g[1]) + (g[2] + g[3]))
+        total = s if ph.splits == 1 else (torch.zeros_like(s) if total is None else total) + s
+    return total
+
+
+def _emulate_decode_step(x, kvf, valid, offset, blocks, nh, eps, p: dl.Plan):
+    """The f32 step of csrc/decode_layer.cu: the LayerNorms and the
+    attention as the plain version computes them, the four products in the
+    kernel's split-K order."""
+    h = x.shape[1]
+    qkv_ph, proj_ph, fc_ph, out_ph = p.phases
+    row = torch.arange(kvf.shape[1])[:, None]
+    mask = (row <= offset) & (valid.t() > 0)
+    for layer in range(kvf.shape[0]):
+        blk = {k: v[layer] for k, v in blocks.items()}
+        xn = dl._ln(x, blk["ln1_scale"], blk["ln1_bias"], eps)
+        qkv = _emulate_product(xn, blk["attn_w"], qkv_ph) + blk["attn_b"]
+        kvf[layer, offset] = qkv[:, h:]
+        kc = kvf[layer, :, :, :h].reshape(kvf.shape[1], -1, nh, 64)
+        vc = kvf[layer, :, :, h:].reshape(kvf.shape[1], -1, nh, 64)
+        q = qkv[:, :h].reshape(-1, nh, 64)
+        logits = torch.where(mask[:, :, None], (q[None] * kc).sum(-1) * 0.125, -1e30)
+        heads = (torch.softmax(logits, dim=0)[..., None] * vc).sum(0).reshape(-1, h)
+        x = x + (_emulate_product(heads, blk["proj_w"], proj_ph) + blk["proj_b"])
+        mn = dl._ln(x, blk["ln2_scale"], blk["ln2_bias"], eps)
+        m = torch.nn.functional.gelu(_emulate_product(mn, blk["fc_w"], fc_ph) + blk["fc_b"],
+                                     approximate="tanh")
+        x = x + (_emulate_product(m, blk["out_w"], out_ph) + blk["out_b"])
+    return x, kvf
+
+
+@pytest.mark.parametrize("batch,offset,blocks,splits", [
+    (1, 9, 132, None), (3, 0, 132, (2, 4, 2, 8)), (3, 15, 4, (4, 1, 3, 16))])
+def test_decode_layer_split_order_matches_pallas(batch, offset, blocks, splits):
+    """2 layers at width 128 (2 heads) over a 16-row cache in f32: row 0 is
+    left-padded, rows past the offset hold 1e4; the plan's geometry (out
+    split 5 ways) and two forced ones that split more, the last with 4
+    blocks taking several units each."""
+    rng = np.random.RandomState(20 + offset)
+    n_layer, h, max_len = 2, 128, 16
+
+    def nrm(*shape, std=0.2):
+        return (rng.randn(*shape) * std).astype(np.float32)
+
+    blocks_np = {"ln1_scale": 1 + nrm(n_layer, h, std=0.1), "ln1_bias": nrm(n_layer, h, std=0.1),
+                 "attn_w": nrm(n_layer, h, 3 * h), "attn_b": nrm(n_layer, 3 * h, std=0.1),
+                 "proj_w": nrm(n_layer, h, h), "proj_b": nrm(n_layer, h, std=0.1),
+                 "ln2_scale": 1 + nrm(n_layer, h, std=0.1), "ln2_bias": nrm(n_layer, h, std=0.1),
+                 "fc_w": nrm(n_layer, h, 4 * h), "fc_b": nrm(n_layer, 4 * h, std=0.1),
+                 "out_w": nrm(n_layer, 4 * h, h), "out_b": nrm(n_layer, h, std=0.1)}
+    x = nrm(batch, h, std=1.0)
+    kvf = nrm(n_layer, max_len, batch, 2 * h, std=1.0)
+    kvf[:, offset + 1:] = 1e4
+    valid = np.zeros((batch, max_len), np.int32)
+    valid[:, :offset + 1] = 1
+    valid[0, :min(3, offset)] = 0
+    p = dl.plan(batch, h, n_layer, max_len, 4, blocks, splits=splits)
+    assert p.splits == (splits or (1, 1, 1, 5))
+    got, got_kvf = _emulate_decode_step(torch.from_numpy(x), torch.from_numpy(kvf.copy()),
+                                        torch.from_numpy(valid), offset,
+                                        {k: torch.from_numpy(v) for k, v in blocks_np.items()},
+                                        h // 64, 1e-5, p)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_kvf = jdl.gpt2_decode_step(jnp.asarray(x), jnp.asarray(kvf),
+                                              jnp.asarray(valid), jnp.int32(offset),
+                                              {k: jnp.asarray(v) for k, v in blocks_np.items()},
+                                              h // 64, 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(got_kvf.numpy(), np.asarray(want_kvf), atol=1e-5, rtol=1e-4)
 
 
 # ---- the native loader, built by six processes at once -----------------------

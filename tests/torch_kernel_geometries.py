@@ -1,5 +1,5 @@
 """Geometries swept by the launch-plan tests of the fused_pool,
-prefix_projector, beam_attention and decode_attention kernels: on the CPU
+prefix_projector, beam_attention, decode_attention and decode_layer kernels: on the CPU
 (tests/test_torch_kernel_plans.py, the plans alone) and on the GPU
 (tests/test_torch_cuda_kernels.py, the kernels against their plain
 versions)."""
@@ -22,3 +22,9 @@ DECODE_GEOMETRIES = [(batch, length) for batch in (1, 3, 64) for length in (1, 1
 """(B, L) of one decode-attention layer: q [B, nh, 64] over K/V [B, L, nh, 64];
 the CPU sweep checks the plan in bf16 and f32 at 12 heads, the GPU runs each
 through the kernel in both dtypes."""
+
+LAYER_GEOMETRIES = [(batch, h, max_len) for batch in (1, 3, 8, 64) for h in (256, 768)
+                    for max_len in (1, 20, 64, 1024)]
+"""(B, H, max_len) of one fused decode step: x [B, H] over kvf [n_layer,
+max_len, B, 2H]; the CPU sweep checks the plan in bf16 and f32 with 132
+blocks and with 40."""

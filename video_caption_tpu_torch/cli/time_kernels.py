@@ -1,6 +1,6 @@
 """Times of the encoder_attention, lm_head, fused_pool, prefix_projector,
-beam_attention and decode_attention wrappers of one checkout of the port, at
-the main path's shapes, by this checkout's timer.
+beam_attention, decode_attention and decode_layer wrappers of one checkout
+of the port, at the main path's shapes, by this checkout's timer.
 
     python video_caption_tpu_torch/cli/time_kernels.py [--checkout DIR] [--runs 25] [--only NAME]
 
@@ -25,7 +25,13 @@ and wte_t [768, 50304] * 0.02 in bf16, tokens [B*T, 197, 768], x [R, 256]
 * 0.4 with W [256, 3072] * 0.02 in bf16, and ``selfcheck.beam_attention_case``
 (bf16, both modes; the deferred rows only where the checkout's wrapper takes
 ``k_new``) and ``selfcheck.decode_attention_case`` (bf16, B=1 and 64 over a
-64-column cache, B=2 over 300, B=1 over 1024). Prints one JSON object per shape,
+64-column cache, B=2 over 300, B=1 over 1024) and ``selfcheck.decode_layer_case``
+(a whole step over a 64-row cache at offset 40: B=1 and 8 over 12 layers of
+768 in bf16, B=8 in f32, B=1 over one layer, B=3 over 3 layers of 256,
+a 20-row cache at offset 19, f32; and B=1 over a 1024-row cache at offset
+1000, B=64 over 64 rows, 12 layers in bf16), each with a row of its phases' times
+from the kernel's own stamps (``decode_layer.trace_step``, where the
+checkout has it). Prints one JSON object per shape,
 then the card's name and power limit. Needs an NVIDIA GPU: without one it
 exits with an error and times nothing.
 """
@@ -45,6 +51,9 @@ PROJECTOR_ROWS = (1, 4, 8, 64)
 BEAM = ((2, 3, 48, 24, (12, 0, 23)), (1, 4, 48, 40, (20, 0, 39)),   # B, K, S0, N, steps t
         (64, 3, 48, 24, (12,)))
 DECODE = ((1, 64), (64, 64), (2, 300), (1, 1024))   # B, L of decode_attention
+LAYER = ((1, 12, 768, 64, 40, "bf16"), (8, 12, 768, 64, 40, "bf16"),   # B, layers, H, max_len,
+         (8, 12, 768, 64, 40, "f32"), (1, 1, 768, 64, 40, "bf16"),      # offset of decode_layer
+         (3, 3, 256, 20, 19, "f32"), (1, 12, 768, 1024, 1000, "bf16"), (64, 12, 768, 64, 40, "bf16"))
 
 
 def main(argv=None) -> int:
@@ -63,7 +72,8 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     from video_caption_tpu_torch.ops.selfcheck import (beam_attention_case,
-                                                       decode_attention_case, median_ms)
+                                                       decode_attention_case,
+                                                       decode_layer_case, median_ms)
 
     # drop this checkout's port so that the wrappers come from DIR
     for name in [m for m in sys.modules if m.split(".")[0] == "video_caption_tpu_torch"]:
@@ -72,6 +82,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(root))
     from video_caption_tpu_torch.ops import beam_attention as ba
     from video_caption_tpu_torch.ops import decode_attention as da
+    from video_caption_tpu_torch.ops import decode_layer as dl
     from video_caption_tpu_torch.ops import encoder_attention as ea
     from video_caption_tpu_torch.ops import fused_pool as fpl
     from video_caption_tpu_torch.ops import lm_head as lmh
@@ -136,6 +147,20 @@ def main(argv=None) -> int:
         report("decode_attention", shape, lambda: da.decode_attention(q, k, v, valid))
         report("decode_attention", shape,
                lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask), "library")
+    for batch, layers, h, max_len, offset, kind in LAYER:
+        if args.only and args.only != "decode_layer":
+            break
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        x, kvf, valid, blocks = decode_layer_case(batch, "cuda", layers, h, max_len, offset, dtype)
+        shape = f"B={batch} {layers}x{h} max_len={max_len} offset={offset} {kind}"
+        report("decode_layer", shape, lambda: dl.gpt2_decode_step(x, kvf, valid, offset, blocks,
+                                                                   h // 64))
+        if hasattr(dl, "trace_step"):   # the kernel's phase stamps, where the checkout has them
+            dl.trace_step(x, kvf, valid, offset, blocks, h // 64)
+            print(json.dumps({"checkout": str(root), "kernel": "decode_layer phases (us)",
+                              "shape": shape,
+                              **dl.trace_step(x, kvf, valid, offset, blocks, h // 64)}),
+                  flush=True)
     # the timer's floor: a kernel that spins for one cycle
     report("launch floor", "torch.cuda._sleep(1)", lambda: torch.cuda._sleep(1), "library")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -42,7 +42,7 @@ SIGNATURES: Dict[str, List] = {
     "vct_lm_head_stats": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vct_beam_attention": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P] + [_I] * 11 + [_P],
     "vct_decode_attention": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P] + [_I] * 7 + [_P],
-    "vct_decode_layer": [_P] * 19 + [_I] * 6 + [_F, _I, _P],
+    "vct_decode_layer": [_P] * 22 + [_I] * 6 + [_F] + [_I] * 11 + [_P],
     "vct_fused_pool": [_P, _P] + [_I] * 10 + [_P],
 }
 

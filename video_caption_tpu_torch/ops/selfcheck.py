@@ -409,10 +409,14 @@ def check_decode_attention(batch: int, length: int, device="cuda", heads: int = 
 
 
 def decode_layer_case(batch: int, device="cuda", n_layer: int = 12, h: int = 768,
-                      max_len: int = 64, offset: int = 40, dtype=torch.bfloat16, seed: int = 5):
+                      max_len: int = 64, offset: int = 40, dtype=torch.bfloat16, seed: int = 5,
+                      stale: bool = False, empty_row: bool = False):
     """Seeded inputs of one fused decode step at GPT-2 124M widths, with
     the weights as prepare_decode_params leaves them (LN f32, the rest in
-    ``dtype``): (x, kvf, valid, blocks)."""
+    ``dtype``): (x, kvf, valid, blocks). The first row is left-padded by 3
+    (``empty_row``: it has no visible column at all); ``stale``: every
+    cache row the step cannot see (past the offset, or not valid) holds 1e4
+    in K and V."""
     g = _gen(device, seed)
 
     def nrm(*shape, std=0.02):
@@ -429,29 +433,37 @@ def decode_layer_case(batch: int, device="cuda", n_layer: int = 12, h: int = 768
     valid = torch.zeros((batch, max_len), dtype=torch.int32, device=device)
     valid[:, :offset + 1] = 1
     valid[0, :3] = 0                      # a left-padded first row
+    if empty_row:
+        valid[0] = 0
+    if stale:
+        kvf[:, (valid == 0).t()] = 1e4
     return x, kvf, valid, blocks
 
 
 def check_decode_layer(batch: int, device="cuda", n_layer: int = 12, h: int = 768,
-                       max_len: int = 64, offset: int = 40,
-                       dtype=torch.bfloat16) -> CheckResult:
-    x, kvf, valid, blocks = decode_layer_case(batch, device, n_layer, h, max_len, offset, dtype)
+                       max_len: int = 64, offset: int = 40, dtype=torch.bfloat16,
+                       stale: bool = False, empty_row: bool = False) -> CheckResult:
+    x, kvf, valid, blocks = decode_layer_case(batch, device, n_layer, h, max_len, offset, dtype,
+                                              stale=stale, empty_row=empty_row)
     heads = h // 64
     kvf_kernel, kvf_plain = kvf.clone(), kvf.clone()
     got, _ = dl.gpt2_decode_step(x, kvf_kernel, valid, offset, blocks, heads)
     want, _ = dl.gpt2_decode_step_ref(x, kvf_plain, valid, offset, blocks, heads)
     live = int(valid[:, :offset + 1].sum())
+    blind = int((valid[:, :offset + 1].sum(dim=1) == 0).sum())   # rows that average every V row
     row = batch * 2 * h * kvf.element_size()
     bytes_ = nbytes(x, got, valid, *blocks.values()) \
-        + n_layer * (2 * h * kvf.element_size() * live + row)   # visible K/V read, new row written
-    flops = n_layer * (2 * batch * 12 * h * h + 4 * h * live)
+        + n_layer * (h * kvf.element_size() * (2 * live + blind * max_len) + row)
+    flops = n_layer * (2 * batch * 12 * h * h + 4 * h * live + 2 * h * blind * max_len)
     if dtype == torch.float32:
         tol = (1e-4, 1e-4, False)
     else:
         tol = (5e-2, 0.0, True) if n_layer > 1 else None
     kind = "f32" if dtype == torch.float32 else "bf16"
+    edge = (", no visible column in row 0" if empty_row else "") \
+        + (", stale rows 1e4" if stale else "")
     return _result("decode_layer",
-                   f"B={batch} {n_layer}x{h} max_len={max_len} offset={offset} {kind}",
+                   f"B={batch} {n_layer}x{h} max_len={max_len} offset={offset} {kind}{edge}",
                    [got, kvf_kernel], [want, kvf_plain],
                    lambda: dl.gpt2_decode_step(x, kvf_kernel, valid, offset, blocks, heads),
                    lambda: dl.gpt2_decode_step_ref(x, kvf_plain, valid, offset, blocks, heads),
@@ -592,7 +604,8 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     N-1) and at 64 videos x 3 beams (batched serving), decode_attention at
     B=64 (batched), at B=2, L=300 and B=1, L=1024 (split over a cluster), on
     a row with no visible column, over stale rows of 1e4, in f32, and at
-    L=4096 (chunks)."""
+    L=4096 (chunks), and decode_layer at B=1 and 8 over 12 layers and one,
+    in f32, over a 1024-row cache and at B=64."""
     out = []
     out += [check_encoder_attention(n, device) for n in (16, 128)]
     out += [check_encoder_attention(32, device, dtype=torch.float32),   # joint step
@@ -614,6 +627,8 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     out += [check_decode_layer(b, device) for b in (1, 8)]
     out += [check_decode_layer(b, device, n_layer=1) for b in (1, 8)]
     out += [check_decode_layer(8, device, dtype=torch.float32)]
+    out += [check_decode_layer(1, device, max_len=1024, offset=1000),   # K/V in chunks
+            check_decode_layer(64, device)]                             # batched
     out += [check_fused_pool(4, 8, "gap", torch.float32, device),
             check_fused_pool(16, 8, "gap", torch.bfloat16, device),
             check_fused_pool(2, 8, "cls", torch.bfloat16, device)]
