@@ -19,20 +19,28 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    gradients of the three differentiable kernels (kernel forward,
    closed-form backward) against autograd through their plain versions;
 4. engine: a full-width ViT-B/16 + GPT-2 (124M) engine with seeded random
-   bf16 weights, 16 frames of 224x224 JPEGs per request: a warm-up request,
-   then timed requests through ``InferenceEngine.infer`` with the core
-   presets, with the kernels' launch counts read around them (the default
-   configuration launches the four kernels of the default path and neither
-   fused-decode kernel); one request with the serving presets;
-5. decode configurations: one engine with
-   ``compile.use_pallas_decode_attention`` and one with
+   bf16 weights, 16 frames of 224x224 JPEGs per request, serving each
+   request as the default configuration does: one replay of the request
+   program captured into a CUDA graph (``aot.RequestGraph``). Beside it its
+   eager twin (``compile.aot_request_program`` off; the same seed and
+   parameters). Each takes a warm-up request (the graph's capture) and
+   then the same timed requests through ``InferenceEngine.infer`` with the
+   core presets; their ``to_api_dict()`` must be identical, and so must the
+   token ids of one more request (the graph's replay against the same
+   program run op by op). One replay runs under torch.profiler: its count
+   of the port's kernels must equal the wrappers' counters' delta (a replay
+   adds the launches its capture recorded). The kernels' launch counts are
+   read around the graph's requests (the default configuration launches the
+   four kernels of the default path and neither fused-decode kernel); one
+   request with the serving presets (its first: the capture included);
+5. decode configurations, each as in 4 (graph beside its eager twin): one
+   engine with ``compile.use_pallas_decode_attention`` and one with
    ``compile.use_pallas_decode_layer`` (the default engine's parameters),
-   each with a warm-up and timed core-preset requests, launch counts read
-   around them, and the sampled (``natural``) group timed alone beside the
-   default engine's; then one with ``compile.deferred_decode_cache_write``,
-   a warm-up and timed core-preset requests, which must launch beam_attention
-   (in its deferred mode) as often per request as the default engine and
-   neither fused-decode kernel;
+   launch counts read around the graph's requests, and the sampled
+   (``natural``) group timed alone, eagerly, beside the default engine's;
+   then one with ``compile.deferred_decode_cache_write``, which must launch
+   beam_attention (in its deferred mode) as often per request as the
+   default engine and neither fused-decode kernel;
 6. reference: the prefix and the prefill logits against the plain path in
    f32 on the CPU on a 2-frame input; for each fused-decode engine and the
    deferred engine the logits of 4 K=1 decode steps, and for the default and
@@ -188,30 +196,15 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"engine: built in {time.perf_counter() - t0:.2f} s, "
             f"{sum(p.numel() for p in _leaves(engine.params)) / 1e6:.1f} M parameters bf16")
-        t0 = time.perf_counter()
-        engine.warmup()
-        torch.cuda.synchronize()
-        log(f"engine: warm-up request {time.perf_counter() - t0:.2f} s")
-
-        torch.cuda.reset_peak_memory_stats()
-        latencies, results, launches = _timed_requests(engine, dirs, TIMED_REQUESTS)
-        peak = torch.cuda.max_memory_allocated()
-        for r in results:
-            _check_result(r)
+        pair = _graph_and_eager("default", engine, dirs, TIMED_REQUESTS)
+        launches = dict(pair["graph"]["launches"])
         _require_launches(launches, selfcheck.DEFAULT_PATH, "the default main path")
         if any(launches[n] for n in SWITCHES):
             raise AssertionError(f"the default configuration launched a fused-decode kernel: "
                                  f"{launches}")
-        p50 = statistics.median(latencies)
-        log(f"engine core presets: {len(latencies)} requests, latencies "
-            f"{[round(x * 1000, 1) for x in latencies]} ms, p50 {p50 * 1000:.1f} ms, "
-            f"{1.0 / statistics.mean(latencies):.2f} captions/s (sequential), "
-            f"peak device memory {peak / 2**20:.0f} MiB")
-        log(f"engine launches during the timed requests: {launches}")
-        log(f"engine result: {json.dumps(results[0])}")
-        report["engine"] = {"presets": "core", "frames": NUM_FRAMES, "latencies_s": latencies,
-                            "p50_s": p50, "captions_per_s": 1.0 / statistics.mean(latencies),
-                            "peak_bytes": peak, "launches": dict(launches), "results": results}
+        latencies = pair["graph"]["latencies_s"]
+        log(f"engine result: {json.dumps(pair['graph']['results'][0])}")
+        report["engine"] = {"presets": "core", "frames": NUM_FRAMES, **pair}
 
         serving = InferenceEngine(serving_inference_config(ckpt=ckpt, num_frames=NUM_FRAMES,
                                                            image_size=IMAGE_SIZE),
@@ -221,11 +214,12 @@ def main() -> int:
         torch.cuda.synchronize()
         s_lat = time.perf_counter() - t0
         _check_result(served)
-        log(f"engine serving presets (beam-4 x 40): first request {s_lat * 1000:.1f} ms, "
-            f"result {json.dumps(served)}")
-        report["serving"] = {"latency_s": s_lat, "result": served}
+        s_capture = serving.request_graph(serving.load_video(dirs[0])).capture_s
+        log(f"engine serving presets (beam-4 x 40): first request {s_lat * 1000:.1f} ms "
+            f"(the graph's capture {s_capture:.2f} s of it), result {json.dumps(served)}")
+        report["serving"] = {"latency_s": s_lat, "capture_s": s_capture, "result": served}
 
-        # ---- 5. the fused K=1 decode configurations
+        # ---- 5. the fused K=1 decode configurations and the deferred cache write
         natural_ms = {"default": _natural_group_ms(engine, dirs[0])}
         log(f"engine default: natural group alone {natural_ms['default']:.1f} ms (median of 3)")
         fused = {}
@@ -233,47 +227,32 @@ def main() -> int:
             cfg = dataclasses.replace(core_cfg, compile=dataclasses.replace(
                 core_cfg.compile, **{switch: True}))
             eng = InferenceEngine(cfg, params=engine.params, seed=SEED, device="cuda")
-            eng.warmup()
-            torch.cuda.synchronize()
-            lat, res, counts = _timed_requests(eng, dirs, FUSED_REQUESTS)
-            for r in res:
-                _check_result(r)
+            pair = _graph_and_eager(switch, eng, dirs, FUSED_REQUESTS)
+            counts = pair["graph"]["launches"]
             _require_launches(counts, selfcheck.DEFAULT_PATH + (kernel,), f"the {switch} path")
             launches[kernel] = counts[kernel]     # the fused kernel's count is its path's
             natural_ms[kernel] = _natural_group_ms(eng, dirs[0])
             fused[kernel] = eng
-            log(f"engine {switch}=True: {len(lat)} requests, latencies "
-                f"{[round(x * 1000, 1) for x in lat]} ms, p50 {statistics.median(lat) * 1000:.1f} ms "
-                f"(default {p50 * 1000:.1f} ms); natural group alone {natural_ms[kernel]:.1f} ms "
-                f"(default {natural_ms['default']:.1f} ms); {kernel} launches "
-                f"{counts[kernel]} ({counts[kernel] / len(lat):g} per request); all {counts}")
-            log(f"engine {switch}=True result: {json.dumps(res[0])}")
-            report[f"engine_{kernel}"] = {"latencies_s": lat, "p50_s": statistics.median(lat),
-                                          "natural_group_ms": natural_ms[kernel],
-                                          "launches": counts, "results": res}
+            log(f"engine {switch}=True: natural group alone {natural_ms[kernel]:.1f} ms "
+                f"(default {natural_ms['default']:.1f} ms); {kernel} launches {counts[kernel]} "
+                f"({counts[kernel] / FUSED_REQUESTS:g} per request)")
+            report[f"engine_{kernel}"] = {"natural_group_ms": natural_ms[kernel], **pair}
         report["natural_group_ms"] = natural_ms
 
         cfg = dataclasses.replace(core_cfg, compile=dataclasses.replace(
             core_cfg.compile, **{DEFERRED: True}))
         deferred = InferenceEngine(cfg, params=engine.params, seed=SEED, device="cuda")
-        deferred.warmup()
-        torch.cuda.synchronize()
-        lat, res, counts = _timed_requests(deferred, dirs, FUSED_REQUESTS)
-        for r in res:
-            _check_result(r)
+        pair = _graph_and_eager(DEFERRED, deferred, dirs, FUSED_REQUESTS)
+        counts = pair["graph"]["launches"]
         _require_launches(counts, selfcheck.DEFAULT_PATH, f"the {DEFERRED} path")
-        per_request = counts["beam_attention"] / len(lat)
+        per_request = counts["beam_attention"] / FUSED_REQUESTS
         default_per_request = launches["beam_attention"] / len(latencies)
-        log(f"engine {DEFERRED}=True: {len(lat)} requests, latencies "
-            f"{[round(x * 1000, 1) for x in lat]} ms, p50 {statistics.median(lat) * 1000:.1f} ms "
-            f"(default {p50 * 1000:.1f} ms); beam_attention launches {per_request:g} per request "
-            f"(default {default_per_request:g}); all {counts}")
-        log(f"engine {DEFERRED}=True result: {json.dumps(res[0])}")
+        log(f"engine {DEFERRED}=True: beam_attention launches {per_request:g} per request "
+            f"(default {default_per_request:g})")
         if per_request != default_per_request or any(counts[n] for n in SWITCHES):
             raise AssertionError(f"the {DEFERRED} path must launch beam_attention as the default "
                                  f"path does and no fused-decode kernel: {counts}")
-        report["engine_deferred"] = {"latencies_s": lat, "p50_s": statistics.median(lat),
-                                     "launches": counts, "results": res}
+        report["engine_deferred"] = pair
 
         # ---- 6. correctness against the plain path in f32 on the CPU (2 frames)
         video = engine.load_video(dirs[1])[:, :2]
@@ -348,6 +327,73 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _graph_and_eager(label, engine, dirs, count):
+    """Phases 4 and 5 for one configuration: ``engine`` on the request
+    graph (its configuration's default) and its eager twin (the same
+    configuration with ``aot_request_program`` off, the same seed and
+    parameters), each warmed up, serving the same ``count`` requests; then
+    the ids of one more request on each, and one replay under
+    torch.profiler. Fails unless the results and the ids are identical and
+    the profiler's count of the port's kernels in the replay equals the
+    wrappers' counters' delta. The graph's ``launches`` are its timed
+    requests'."""
+    from video_caption_tpu_torch.cli.profile_request import profile_call
+    from video_caption_tpu_torch.engine import InferenceEngine
+
+    cfg = engine.config
+    eager = InferenceEngine(dataclasses.replace(cfg, compile=dataclasses.replace(
+        cfg.compile, aot_request_program=False)), params=engine.params, seed=SEED, device="cuda")
+    out = {}
+    for mode, eng in (("graph", engine), ("eager", eager)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        lat, res, counts = _timed_requests(eng, dirs, count)
+        for r in res:
+            _check_result(r)
+        out[mode] = {"warmup_s": warmup_s, "latencies_s": lat, "p50_s": statistics.median(lat),
+                     "captions_per_s": 1.0 / statistics.mean(lat),
+                     "peak_added_bytes": torch.cuda.max_memory_allocated() - before,
+                     "launches": counts, "results": res}
+    if out["graph"]["results"] != out["eager"]["results"]:
+        raise AssertionError(f"{label}: the graph's results differ from the eager path's: "
+                             f"{out['graph']['results']} vs {out['eager']['results']}")
+    video = engine.load_video(dirs[0])
+    ids = [engine.request_ids(video), eager.request_ids(video)]
+    same_ids = all(a.shape == b.shape and (a == b).all() for a, b in zip(*ids))
+    if not same_ids:
+        raise AssertionError(f"{label}: the graph's ids differ from the program's run op by op: "
+                             f"{ids}")
+    graph = engine.request_graph(video)
+    before = _kernel_counts()
+    prof = profile_call(lambda: graph.replay(video))
+    delta = {n: c - before[n] for n, c in _kernel_counts().items() if c != before[n]}
+    if prof["wrapper_launches"] != delta:
+        raise AssertionError(f"{label}: the profiler saw {prof['wrapper_launches']} launches in "
+                             f"one replay, the counters {delta}")
+    out["graph"].update(capture_s=graph.capture_s, capture_warmup_s=graph.warmup_s,
+                        replay_kernels=prof["kernels"],
+                        replay_device_ms=prof["device_ms"], replay_busy_share=prof["busy_share"],
+                        replay_launches=delta)
+    g, e = out["graph"], out["eager"]
+    log(f"engine {label}: graph {count} requests {[round(x * 1000, 1) for x in g['latencies_s']]} "
+        f"ms, p50 {g['p50_s'] * 1000:.1f} ms, {g['captions_per_s']:.2f} captions/s, capture "
+        f"{graph.capture_s:.2f} s (after a {graph.warmup_s:.2f} s run), peak "
+        f"+{g['peak_added_bytes'] / 2**20:.0f} MiB; eager "
+        f"{[round(x * 1000, 1) for x in e['latencies_s']]} ms, p50 {e['p50_s'] * 1000:.1f} ms, "
+        f"{e['captions_per_s']:.2f} captions/s, peak +{e['peak_added_bytes'] / 2**20:.0f} MiB")
+    log(f"engine {label}: results identical over {count} requests, ids identical "
+        f"({[a.shape for a in ids[0]]}); one replay: {prof['kernels']} kernels, "
+        f"{prof['device_ms']:.2f} ms device, busy {prof['busy_share']:.1%}, the port's kernels "
+        f"{prof['wrapper_launches']} = counters' delta; launches over the graph's requests "
+        f"{g['launches']}")
+    return {**out, "ids_identical": same_ids}
 
 
 def _timed_requests(engine, dirs, count):

@@ -474,3 +474,130 @@ def test_fused_decode_wrappers_reject_what_the_kernels_do_not_take(cuda):
                             12)
     with pytest.raises(ValueError):
         dl.gpt2_decode_step(x, kvf, valid, 64, blocks, 12)   # offset outside the cache
+
+
+# ---- each kernel of the request path captured alone into a CUDA graph
+
+
+def _tensors(out):
+    return out if isinstance(out, (tuple, list)) else (out,)
+
+
+def _assert_replays_bit_equal(fn, example, want, generators=()):
+    """``fn`` captured alone (aot.RequestGraph) and replayed twice on
+    ``example`` gives ``want``'s bits both times."""
+    from video_caption_tpu_torch.aot import RequestGraph
+
+    graph = RequestGraph.capture(fn, example, generators)
+    for _ in range(2):
+        got = graph.replay(example)
+        torch.cuda.synchronize()
+        for g, w in zip(_tensors(got), _tensors(want), strict=True):
+            assert torch.equal(g, w)
+    return graph
+
+
+def test_encoder_attention_kernel_in_a_graph(cuda):
+    from video_caption_tpu_torch.ops import encoder_attention as ea
+
+    qkv = torch.randn((16, 197, 2304), generator=torch.Generator(cuda).manual_seed(0),
+                      device=cuda).bfloat16()
+    graph = _assert_replays_bit_equal(lambda x: ea.encoder_attention(x, 12), qkv,
+                                      ea.encoder_attention(qkv, 12))
+    assert {m.__name__.rsplit(".", 1)[-1]: n for m, n in graph.launches.items()} \
+        == {"encoder_attention": 1}
+
+
+def test_prefix_projector_kernel_in_a_graph(cuda):
+    from video_caption_tpu_torch.ops import prefix_projector as pp
+
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn((1, 256), generator=g, device=cuda)
+    w = (torch.randn((256, 3072), generator=g, device=cuda) * 0.02).bfloat16()
+    b = (torch.randn((3072,), generator=g, device=cuda) * 0.02).bfloat16()
+    _assert_replays_bit_equal(lambda v: pp.prefix_project(v, w, b), x, pp.prefix_project(x, w, b))
+
+
+def test_lm_head_kernel_in_a_graph(cuda):
+    from video_caption_tpu_torch.ops import lm_head as lmh
+
+    g = torch.Generator(cuda).manual_seed(2)
+    x = torch.randn((6, 768), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((768, 50304), generator=g, device=cuda) * 0.02).bfloat16()
+    w[:, 50257:] = 0
+    _assert_replays_bit_equal(lambda v: lmh.lm_head_stats(v, w, 50257), x,
+                              lmh.lm_head_stats(x, w, 50257))
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+def test_beam_attention_kernel_in_a_graph(cuda, deferred):
+    from video_caption_tpu_torch.ops import beam_attention as ba
+
+    q, k_new, v_new, gkv, pk, pv, valid, anc = selfcheck.beam_attention_case(2, 3, 48, 24, cuda)
+    kw = dict(k_new=k_new, v_new=v_new) if deferred else {}
+    q = q.contiguous()
+
+    def fn(x):
+        return ba.beam_attention(x, gkv, pk, pv, valid, anc, 12, 3, 12, **kw)
+
+    _assert_replays_bit_equal(fn, q, fn(q))
+
+
+@pytest.mark.parametrize("length", [64, 1024])       # 1024: a cluster launch (cudaLaunchKernelEx)
+def test_decode_attention_kernel_in_a_graph(cuda, length):
+    from video_caption_tpu_torch.ops import decode_attention as da
+
+    q, k, v, valid = selfcheck.decode_attention_case(1, length, cuda)
+    assert (da.plan(1, 12, length, 2).splits > 1) == (length == 1024)
+    q = q.contiguous()
+    _assert_replays_bit_equal(lambda x: da.decode_attention(x, k, v, valid), q,
+                              da.decode_attention(q, k, v, valid))
+
+
+def test_decode_layer_kernel_in_a_graph(cuda):
+    """The cooperative launch captures; each replay gives the eager step's
+    bits (output and cache), and leaves every ticket at zero."""
+    from video_caption_tpu_torch.ops import decode_layer as dl
+
+    x, kvf, valid, blocks = selfcheck.decode_layer_case(1, cuda)
+    kvf_eager, kvf_graph = kvf.clone(), kvf.clone()
+    want, _ = dl.gpt2_decode_step(x, kvf_eager, valid, 40, blocks, 12)
+    _assert_replays_bit_equal(lambda v: dl.gpt2_decode_step(v, kvf_graph, valid, 40, blocks, 12)[0],
+                              x, want)
+    assert torch.equal(kvf_graph, kvf_eager)
+    assert dl._tickets and all(int(t.abs().sum()) == 0 for t in dl._tickets.values())
+
+
+def test_request_graph_draws_what_eager_draws(cuda):
+    """A generator registered with the graph: each replay draws what the
+    same call made eagerly draws, and advances the generator as much."""
+    graph_gen = torch.Generator(cuda).manual_seed(9)
+    eager_gen = torch.Generator(cuda).manual_seed(9)
+    x = torch.zeros(1000, device=cuda)
+
+    def draw(v, gen):
+        return v + torch.rand(v.shape, generator=gen, device=v.device)
+
+    from video_caption_tpu_torch.aot import RequestGraph
+
+    graph = RequestGraph.capture(lambda v: draw(v, graph_gen), x, (graph_gen,))
+    draws = []
+    for _ in range(3):
+        got = graph.replay(x).clone()
+        want = draw(x, eager_gen)
+        assert torch.equal(got, want)
+        draws.append(got)
+    assert not torch.equal(draws[0], draws[1])
+    assert torch.equal(torch.rand(4, generator=graph_gen, device=cuda),
+                       torch.rand(4, generator=eager_gen, device=cuda))
+
+
+def test_build_engine_captures_the_three_stages(cuda, tmp_path):
+    from video_caption_tpu_torch import aot
+    from video_caption_tpu_torch.config import default_inference_config
+
+    report = aot.build_engine(default_inference_config(ckpt=str(tmp_path / "absent.pt"),
+                                                       num_frames=2))
+    assert list(report) == ["encoder", "projector", "decoder"]
+    for stage in report.values():
+        assert stage["compile_s"] > 0 and stage["flops"] is None

@@ -1,24 +1,33 @@
 """Where one request's time goes on the GPU, for each decode configuration
-of the port.
+of the port, on the request graph (the default) or eagerly.
 
-    python -m video_caption_tpu_torch.cli.profile_request [--requests 6] [--trace-dir DIR]
+    python -m video_caption_tpu_torch.cli.profile_request [--eager] [--requests 6] [--trace-dir DIR]
 
 Builds the full-width engine (ViT-B/16 + GPT-2 124M, seeded random bf16
 weights, 16 frames of 224x224 JPEGs, core presets) once per configuration:
 the default, ``compile.use_pallas_decode_attention``,
 ``compile.use_pallas_decode_layer`` and
-``compile.deferred_decode_cache_write``, all on the same weights. For each:
+``compile.deferred_decode_cache_write``, all on the same weights. By
+default each engine serves a request by replaying its captured request
+graph (``compile.aot_request_program``, on by default); ``--eager`` builds
+them with it off, so the request runs op by op. For each:
 
-1. stage times, the median over ``--requests`` requests with a synchronise
-   after each stage (host clock): frame load and upload, the visual branch
-   (ViT, prefix norm, mapper), and each decode group alone;
-2. one whole request under ``torch.profiler`` (CPU and CUDA activity): the
+1. ``--requests`` requests through ``InferenceEngine.infer``, each
+   synchronised (host clock): the latencies, their median (p50) and
+   captions/s of the sequential loop; on the graph, the seconds of the
+   capture and of the run before it;
+2. stage times, the median over ``--requests`` requests with a synchronise
+   after each stage (host clock): frame load and upload, then eagerly the
+   visual branch (ViT, prefix norm, mapper) and each decode group alone,
+   or on the graph one replay with the copy of the ids to the host;
+3. one whole request under ``torch.profiler`` (CPU and CUDA activity): the
    number of device kernels, their summed device time, the device busy
    share (the union of kernel intervals over the profiled span), the
    device time by kernel name (the 12 largest) and that of every one of the
-   port's own kernels;
-3. each decode group alone under ``torch.profiler``: its kernels, device
-   time and busy share.
+   port's own kernels, and the launches of each kernel wrapper that those
+   show;
+4. eagerly, each decode group alone under ``torch.profiler``; on the graph,
+   one replay alone: its kernels, device time and busy share.
 
 Prints one JSON object per configuration; with ``--trace-dir`` also writes
 a Chrome trace per configuration. Needs an NVIDIA GPU: without one it exits
@@ -44,6 +53,15 @@ from video_caption_tpu_torch.ops import build
 
 CONFIGS = ("default", "use_pallas_decode_attention", "use_pallas_decode_layer",
            "deferred_decode_cache_write")
+LAUNCH_KERNELS = {
+    "attention_bf16_kernel": "encoder_attention", "attention_f32_kernel": "encoder_attention",
+    "prefix_projector_kernel": "prefix_projector", "lm_head_row_stats_kernel": "lm_head",
+    "beam_attention_kernel": "beam_attention", "decode_attention_kernel": "decode_attention",
+    "decode_layer_kernel": "decode_layer", "fused_pool_kernel": "fused_pool",
+}
+"""Kernels that one counted launch of a wrapper (``ops/<wrapper>.py``)
+runs exactly once: lm_head's launch also runs one window kernel for every
+256 rows before its row statistics."""
 
 
 def make_videos(root: Path, count: int, frames: int, size: int, seed: int):
@@ -86,15 +104,28 @@ def decode_groups(engine) -> dict:
     return {f"group {m[0][0]} x{len(m)}": m for m in groups.values()}
 
 
-def stage_times(engine, frames_dir: str) -> dict:
-    """ms of each stage of one request, run stage by stage."""
+def stage_times(engine, frames_dir: str, eager: bool) -> dict:
+    """ms of each stage of one request, run stage by stage: eagerly the
+    visual branch and each decode group, on the graph one replay (with the
+    ids' copy to the host)."""
     video, ms = _timed(lambda: engine.load_video(frames_dir))
     out = {"frame_load": ms}
-    prefix, out["visual"] = _timed(lambda: engine.compute_prefix(video))
-    for name, members in decode_groups(engine).items():
-        _, out[name] = _timed(lambda: engine.generate_presets(prefix, members))
+    if eager:
+        prefix, out["visual"] = _timed(lambda: engine.compute_prefix(video))
+        for name, members in decode_groups(engine).items():
+            _, out[name] = _timed(lambda: engine.generate_presets(prefix, members))
+    else:
+        _, out["graph replay"] = _timed(lambda: engine.request_ids(video))
     out["total"] = sum(out.values())
     return out
+
+
+def timed_requests(engine, dirs, count: int) -> dict:
+    """Latencies (ms, host clock, each request synchronised), p50 and
+    captions/s of ``count`` sequential ``engine.infer`` calls."""
+    ms = [_timed(lambda: engine.infer(dirs[i % len(dirs)]))[1] for i in range(count)]
+    return {"latency_ms": ms, "p50_ms": statistics.median(ms),
+            "captions_per_s": 1000.0 / statistics.mean(ms)}
 
 
 def group_profiles(engine, frames_dir: str) -> dict:
@@ -143,20 +174,30 @@ def profile_call(fn, trace: Path = None) -> dict:
     if trace is not None:
         prof.export_chrome_trace(str(trace))
     own = [kv for kv in ranked if is_port_kernel(kv[0])]
+    wrappers = defaultdict(int)
+    for n, (c, _) in own:
+        if port_kernel(n) in LAUNCH_KERNELS:
+            wrappers[LAUNCH_KERNELS[port_kernel(n)]] += c
     return {"kernels": len(kernels), "device_ms": sum(v[1] for v in by_name.values()) / 1000,
             "busy_ms": busy / 1000, "profiled_wall_ms": wall_us / 1000,
             "busy_share": busy / wall_us if wall_us else 0.0,
             "top": [{"name": n[:90], "launches": c, "ms": t / 1000} for n, (c, t) in ranked[:12]],
-            "port_kernels": [{"name": n[:90], "launches": c, "ms": t / 1000} for n, (c, t) in own]}
+            "port_kernels": [{"name": n[:90], "launches": c, "ms": t / 1000} for n, (c, t) in own],
+            "wrapper_launches": dict(wrappers)}
 
 
-def is_port_kernel(name: str) -> bool:
-    """Whether a profiled kernel is one of ops/csrc/*.cu (``build.KERNELS``,
-    each in an anonymous namespace)."""
+def port_kernel(name: str):
+    """The function name of a profiled kernel of ops/csrc/*.cu
+    (``build.KERNELS``, each in an anonymous namespace), or None."""
     prefix = "(anonymous namespace)::"
     rest = name.removeprefix("void ")
     ident = re.match(r"\w+", rest[len(prefix):]) if rest.startswith(prefix) else None
-    return ident is not None and ident.group(0) in build.KERNELS
+    return ident.group(0) if ident is not None and ident.group(0) in build.KERNELS else None
+
+
+def is_port_kernel(name: str) -> bool:
+    """Whether a profiled kernel is one of ops/csrc/*.cu."""
+    return port_kernel(name) is not None
 
 
 def main(argv=None) -> int:
@@ -165,6 +206,8 @@ def main(argv=None) -> int:
     p.add_argument("--frames", type=int, default=16)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trace-dir", default=None)
+    p.add_argument("--eager", action="store_true",
+                   help="serve each request op by op (compile.aot_request_program off)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_request: needs an NVIDIA GPU (torch.cuda.is_available() is false)",
@@ -181,21 +224,35 @@ def main(argv=None) -> int:
         dirs = make_videos(Path(tmp), 3, args.frames + 8, 224, args.seed)
         base = default_inference_config(ckpt=str(Path(tmp) / "absent.pt"),
                                         num_frames=args.frames, image_size=224)
+        base = dataclasses.replace(base, compile=dataclasses.replace(
+            base.compile, aot_request_program=not args.eager))
+        mode = "eager" if args.eager else "graph"
         params = None
         for name in CONFIGS:
             cfg = base if name == "default" else dataclasses.replace(
                 base, compile=dataclasses.replace(base.compile, **{name: True}))
             engine = InferenceEngine(cfg, params=params, seed=args.seed, device="cuda")
             params = engine.params
-            engine.warmup()
-            runs = [stage_times(engine, dirs[i % len(dirs)]) for i in range(args.requests)]
+            _, warmup_ms = _timed(engine.warmup)
+            requests = timed_requests(engine, dirs, args.requests)
+            runs = [stage_times(engine, dirs[i % len(dirs)], args.eager)
+                    for i in range(args.requests)]
             stages = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
             prof = device_profile(engine, dirs[0],
-                                  trace_dir / f"{name}.json" if trace_dir else None)
-            print(json.dumps({"config": name, "device": torch.cuda.get_device_name(0),
-                              "requests": args.requests, "stage_ms_median": stages,
-                              "profile": prof, "groups": group_profiles(engine, dirs[0])}),
-                  flush=True)
+                                  trace_dir / f"{name}_{mode}.json" if trace_dir else None)
+            out = {"config": name, "mode": mode, "device": torch.cuda.get_device_name(0),
+                   "requests": args.requests, "warmup_ms": warmup_ms, **requests,
+                   "stage_ms_median": stages, "profile": prof}
+            if args.eager:
+                out["groups"] = group_profiles(engine, dirs[0])
+            else:
+                video = engine.load_video(dirs[0])
+                graph = engine.request_graph(video)
+                out["capture_s"], out["capture_warmup_s"] = graph.capture_s, graph.warmup_s
+                replay = profile_call(lambda: graph.replay(video))
+                out["replay"] = {k: replay[k] for k in ("kernels", "device_ms", "busy_share",
+                                                        "profiled_wall_ms", "wrapper_launches")}
+            print(json.dumps(out), flush=True)
     return 0
 
 

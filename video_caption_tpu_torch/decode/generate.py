@@ -121,7 +121,9 @@ def greedy_or_sample(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor,
     n = dp.max_new_tokens
     device = inputs_embeds.device
     if cfg.use_pallas_decode_layer:
-        # the decode-layer kernel's weight dtypes, cast once per call
+        # the decode-layer kernel's weight dtypes, cast once per call; no
+        # copy and no kernel where the caller prepared them (the engine
+        # does, once, so a captured request replays no cast)
         params = g2.prepare_decode_params(params, cfg)
     wte_t = g2.lm_head_t(params, cfg)
     (logits, wmax, _, _), cache, valid, row_len = _prefill(

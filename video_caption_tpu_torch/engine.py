@@ -14,19 +14,32 @@ the decode-attention or the whole-step decode-layer kernel;
 K/V once after the layer loop, with the beam-attention kernel in its
 deferred mode.
 
-Not ported yet: the device video LRU, the overlapped chunk upload, the
-fused/AOT request programs, the unified mixed-policy decode (its tokens are
-identical to the grouped decode), the 4:2:0 wire and ``infer_batch``.
+A single video is served, as in the JAX package, by one request program
+from the uploaded video to the token ids of every decode group
+(``_fused_infer_program``, on with ``compile.fuse_single_request`` and
+``compile.aot_request_program``, both on by default). On CUDA that
+program is captured once per video shape into a CUDA graph
+(``aot.RequestGraph``, the counterpart of ``_aot_single_exec``) and every
+request replays it: one host call for the whole request instead of one
+per kernel. A capture that fails raises. ``aot_request_program=False``
+(``VIDEO_CAPTION_AOT_REQUEST=0``) serves the request eagerly, op by op; on
+a CPU engine the program runs uncaptured.
+
+Not ported yet: the device video LRU, the overlapped chunk upload and its
+feats program, the serialized request artifact, the unified mixed-policy
+decode (its tokens are identical to the grouped decode, which the program
+runs), the 4:2:0 wire and ``infer_batch``.
 """
 from __future__ import annotations
 
 import logging
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from video_caption_tpu_torch.aot import RequestGraph
 from video_caption_tpu_torch.config import InferenceConfig
 from video_caption_tpu_torch.datatypes import CaptionCandidates, InferenceResult
 from video_caption_tpu_torch.decode.presets import preset_to_kwargs
@@ -106,10 +119,19 @@ class InferenceEngine:
             # inference weights are stored bf16: every decode step reads all
             # GPT-2 weights, so f32 storage doubles the bytes of the loop
             params = _cast_floating(params, torch.bfloat16)
+        if self.model_cfg.gpt2.use_pallas_decode_layer:
+            # the decode-layer kernel's weight dtypes, cast once here:
+            # greedy_or_sample's own cast is then a no-op (no copy, no
+            # kernel) in every request and every replay. LayerNorm upcasts
+            # its weights anyway, so no other path changes.
+            params = {**params, "decoder": g2.prepare_decode_params(params["decoder"],
+                                                                    self.model_cfg.gpt2)}
         self.params = params
         self.tokenizer = get_tokenizer()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._prompt_ids: Dict[str, np.ndarray] = {}
+        self._program = None
+        self._graphs: Dict[Tuple[int, ...], RequestGraph] = {}
 
     def compute_prefix(self, video: torch.Tensor) -> torch.Tensor:
         """video [B,T,3,H,W] on the engine's device -> prefix [B,P,H] f32."""
@@ -135,9 +157,8 @@ class InferenceEngine:
             eos_id=self.tokenizer.eos_token_id,
         )
 
-    def _generate_group(self, prefix_rows: torch.Tensor, prompts, dp: DecodeParams) -> np.ndarray:
-        """Decode R (prefix, prompt) rows under one policy as one LEFT-padded
-        batch; prefix_rows is [R, P, H]."""
+    def _prompt_batch(self, prompts) -> Tuple[np.ndarray, np.ndarray]:
+        """LEFT-padded prompt ids and masks [R, L] of R prompts."""
         ids_list = [self._tokenize_prompt(p or "") for p in prompts]
         max_len = max(len(ids) for ids in ids_list)
         ids_arr = np.full((len(prompts), max_len), self.tokenizer.pad_token_id, np.int64)
@@ -145,6 +166,12 @@ class InferenceEngine:
         for row, ids in enumerate(ids_list):
             ids_arr[row, max_len - len(ids):] = ids
             mask_arr[row, max_len - len(ids):] = 1
+        return ids_arr, mask_arr
+
+    def _generate_group(self, prefix_rows: torch.Tensor, prompts, dp: DecodeParams) -> np.ndarray:
+        """Decode R (prefix, prompt) rows under one policy as one LEFT-padded
+        batch; prefix_rows is [R, P, H]."""
+        ids_arr, mask_arr = self._prompt_batch(prompts)
         with torch.inference_mode():
             out = generate_prefixed(
                 self.params["decoder"], self.model_cfg.gpt2, prefix_rows,
@@ -152,24 +179,103 @@ class InferenceEngine:
                 torch.from_numpy(mask_arr).to(self.device), dp, self.generator)
         return out.cpu().numpy()
 
+    def _policy_groups(self, preset_prompt_pairs) -> Dict[DecodeParams, List[int]]:
+        """{decode policy: indices of the pairs with it}, in first-use order."""
+        groups: Dict[DecodeParams, List[int]] = {}
+        for i, (preset, _) in enumerate(preset_prompt_pairs):
+            groups.setdefault(self._decode_params(**preset_to_kwargs(preset)), []).append(i)
+        return groups
+
+    def _texts_of(self, out_ids: np.ndarray, idxs, texts) -> None:
+        """Decode and clean a group's rows (video-major) into texts[v][i]."""
+        for row in range(out_ids.shape[0]):
+            vid, slot = divmod(row, len(idxs))
+            text = self.tokenizer.decode(out_ids[row], skip_special_tokens=True)
+            texts[vid][idxs[slot]] = clean_text(text.strip())
+
     def generate_presets(self, prefix: torch.Tensor, preset_prompt_pairs):
         """Decode presets for V videos (prefix [V, P, H]); returns texts[v][i],
         or a flat list when V == 1. Rows with the same decode policy decode as
         one program, video-major: [(v0,i0), (v0,i1), (v1,i0), ...]."""
         v = prefix.shape[0]
-        groups: Dict[DecodeParams, list] = {}
-        for i, (preset, _) in enumerate(preset_prompt_pairs):
-            groups.setdefault(self._decode_params(**preset_to_kwargs(preset)), []).append(i)
         texts = [[""] * len(preset_prompt_pairs) for _ in range(v)]
-        for dp, idxs in groups.items():
+        for dp, idxs in self._policy_groups(preset_prompt_pairs).items():
             prompts = [preset_prompt_pairs[i][1] or "" for _ in range(v) for i in idxs]
             out_ids = self._generate_group(prefix.repeat_interleave(len(idxs), dim=0),
                                            prompts, dp)
-            for row in range(out_ids.shape[0]):
-                vid, slot = divmod(row, len(idxs))
-                text = self.tokenizer.decode(out_ids[row], skip_special_tokens=True)
-                texts[vid][idxs[slot]] = clean_text(text.strip())
+            self._texts_of(out_ids, idxs, texts)
         return texts[0] if v == 1 else texts
+
+    def _pairs(self):
+        c = self.config
+        return [(c.preset1, c.prompt1), (c.preset2, c.prompt2), (c.preset3, c.prompt3)]
+
+    def _fused_infer_program(self):
+        """(program, group_list), built once: ``program(video)`` takes the
+        uploaded uint8 video [V,T,3,S,S] to the token ids of every decode
+        group, ``(ids of group 0 [V*R0, N0], ...)``; ``group_list`` holds
+        each group's (policy, preset indices, prompt ids, prompt mask), the
+        LEFT-padded prompts uploaded once as constant device tensors.
+
+        The program makes no host synchronisation and no host-to-device
+        copy, so a CUDA graph can capture it (counterpart of the JAX
+        engine's ``_fused_infer_program``)."""
+        if self._program is not None:
+            return self._program
+        pairs = self._pairs()
+        group_list = []
+        for dp, idxs in self._policy_groups(pairs).items():
+            ids_arr, mask_arr = self._prompt_batch([pairs[i][1] or "" for i in idxs])
+            group_list.append((dp, tuple(idxs), torch.from_numpy(ids_arr).to(self.device),
+                               torch.from_numpy(mask_arr).to(self.device)))
+        params, model_cfg, generator = self.params, self.model_cfg, self.generator
+
+        def program(video: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+            with torch.inference_mode():
+                prefix = cm.video_to_prefix(params, video, model_cfg)       # [V,P,H]
+                v = prefix.shape[0]
+                return tuple(generate_prefixed(
+                    params["decoder"], model_cfg.gpt2, prefix.repeat_interleave(len(idxs), dim=0),
+                    ids.repeat(v, 1), mask.repeat(v, 1), dp, generator)
+                    for dp, idxs, ids, mask in group_list)
+
+        self._program = (program, group_list)
+        return self._program
+
+    def _serves_on_program(self, video: torch.Tensor) -> bool:
+        cc = self.config.compile
+        return video.shape[0] == 1 and cc.aot_request_program and (
+            cc.fuse_single_request or cc.fuse_request_program)
+
+    def request_graph(self, video: torch.Tensor) -> RequestGraph:
+        """The request program captured for ``video``'s shape (on first use
+        of that shape; the engine's generator registered with it)."""
+        key = tuple(video.shape)
+        if key not in self._graphs:
+            program, _ = self._fused_infer_program()
+            self._graphs[key] = RequestGraph.capture(
+                lambda x: _pack(program(x)), video, (self.generator,))
+            log.info("request graph for %s: warm-up run %.2f s, capture %.2f s", key,
+                     self._graphs[key].warmup_s, self._graphs[key].capture_s)
+        return self._graphs[key]
+
+    def request_ids(self, video: torch.Tensor) -> List[np.ndarray]:
+        """The request program on one video: ids [R_g, N_g] of every decode
+        group, on the host. On CUDA with ``aot_request_program`` one replay
+        of the request graph and one device-to-host copy; otherwise (on the
+        CPU, or with it off) the program runs uncaptured."""
+        program, group_list = self._fused_infer_program()
+        if self.device.type == "cuda" and self.config.compile.aot_request_program:
+            flat = self.request_graph(video).replay(video)
+        else:
+            flat = _pack(program(video))
+        flat = flat.cpu().numpy()
+        out, start = [], 0
+        for dp, idxs, _, _ in group_list:
+            size = len(idxs) * video.shape[0] * dp.max_new_tokens
+            out.append(flat[start:start + size].reshape(-1, dp.max_new_tokens))
+            start += size
+        return out
 
     def load_video(self, frames_dir: str) -> torch.Tensor:
         """frames_dir -> uint8 [1,T,3,S,S] on the engine's device (one upload).
@@ -192,10 +298,18 @@ class InferenceEngine:
         return torch.from_numpy(arr).to(self.device)[None]
 
     def infer_video(self, video: torch.Tensor) -> InferenceResult:
-        """One uploaded uint8 video [1,T,3,S,S] -> InferenceResult."""
-        c = self.config
-        pairs = [(c.preset1, c.prompt1), (c.preset2, c.prompt2), (c.preset3, c.prompt3)]
-        texts = self.generate_presets(self.compute_prefix(video), pairs)
+        """One uploaded uint8 video [1,T,3,S,S] -> InferenceResult, through
+        the request program (a graph replay on CUDA) or, with
+        ``aot_request_program`` off, eagerly."""
+        pairs = self._pairs()
+        if self._serves_on_program(video):
+            _, group_list = self._fused_infer_program()
+            texts = [[""] * len(pairs)]
+            for (_, idxs, _, _), ids in zip(group_list, self.request_ids(video)):
+                self._texts_of(ids, idxs, texts)
+            texts = texts[0]
+        else:
+            texts = self.generate_presets(self.compute_prefix(video), pairs)
         candidates = CaptionCandidates(s1=texts[0], s2=texts[1], s3=texts[2])
         best_key, best_text, _ = select_best(list(candidates.items()))
         return InferenceResult(candidates=candidates, best_key=best_key, best_text=best_text)
@@ -205,7 +319,13 @@ class InferenceEngine:
 
     def warmup(self) -> None:
         """One request on a zero video (first-use costs: kernel build,
-        allocator growth)."""
+        allocator growth and, on CUDA, the request graph's capture). It
+        draws from the generator as much as any request."""
         s = self.config.image_size
         self.infer_video(torch.zeros((1, self.config.num_frames, 3, s, s),
                                      dtype=torch.uint8, device=self.device))
+
+
+def _pack(ids: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """Every group's ids as one flat tensor: one copy to the host."""
+    return torch.cat([x.reshape(-1) for x in ids])

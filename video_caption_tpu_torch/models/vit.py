@@ -172,12 +172,21 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+def _channel_constants(values, video: torch.Tensor) -> torch.Tensor:
+    """[3] f32 on video's device, filled there: a copy from host memory
+    cannot be captured into a CUDA graph."""
+    out = torch.empty(3, dtype=torch.float32, device=video.device)
+    for c, v in enumerate(values):
+        out[c].fill_(v)
+    return out
+
+
 def normalize_pixels(video: torch.Tensor) -> torch.Tensor:
     """uint8 [..,3,H,W] pixels -> ImageNet-normalized f32."""
     x = video.float() / 255.0
     shape = (1,) * (video.ndim - 3) + (3, 1, 1)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=video.device).reshape(shape)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=video.device).reshape(shape)
+    mean = _channel_constants(IMAGENET_MEAN, video).reshape(shape)
+    std = _channel_constants(IMAGENET_STD, video).reshape(shape)
     return (x - mean) / std
 
 

@@ -246,6 +246,11 @@ def _tickets_for(x: torch.Tensor, h: int, stream: int) -> torch.Tensor:
     key = (x.get_device(), stream)
     t = _tickets.get(key)
     if t is None or t.numel() < 4 * h // TILE:
+        if torch.cuda.is_current_stream_capturing():
+            # made inside a capture they would come from the graph's private
+            # pool, and a later graph on this stream handle would share them
+            raise RuntimeError("decode_layer's tickets are made outside a CUDA graph capture: "
+                               "run the step once on the capture stream before capturing")
         t = _tickets[key] = torch.zeros(4 * h // TILE, dtype=torch.int32, device=x.device)
     return t
 
