@@ -21,46 +21,63 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 4. engine: a full-width ViT-B/16 + GPT-2 (124M) engine with seeded random
    bf16 weights, 16 frames of 224x224 JPEGs per request, serving each
    request as the default configuration does: one replay of the request
-   program captured into a CUDA graph (``aot.RequestGraph``). Beside it its
-   eager twin (``compile.aot_request_program`` off; the same seed and
-   parameters). Each takes a warm-up request (the graph's capture) and
-   then the same timed requests through ``InferenceEngine.infer`` with the
-   core presets; their ``to_api_dict()`` must be identical, and so must the
-   token ids of one more request (the graph's replay against the same
-   program run op by op). One replay runs under torch.profiler: its count
-   of the port's kernels must equal the wrappers' counters' delta (a replay
-   adds the launches its capture recorded). The kernels' launch counts are
-   read around the graph's requests (the default configuration launches the
-   four kernels of the default path and neither fused-decode kernel); one
-   request with the serving presets (its first: the capture included);
+   program captured into a CUDA graph (``aot.RequestGraph``), which
+   decodes the three presets in one unified beam-step loop
+   (``compile.unified_fused_request``). Beside it its eager twin
+   (``compile.aot_request_program`` off: group by group, op by op; the same
+   seed and parameters). Each takes a warm-up request (the graph's
+   capture) and then the same timed requests through
+   ``InferenceEngine.infer`` with the core presets; the token ids of one
+   more request must be identical (the graph's replay against the same
+   program run op by op), and so must the results where both decode group
+   by group (else the share of identical captions is printed). One replay
+   runs under torch.profiler: its count of the port's kernels must equal
+   the wrappers' counters' delta. The kernels' launch counts are read
+   around the graph's requests: 24 lm_head and 276 beam_attention launches
+   a request and neither fused-decode kernel. Then the same pair with
+   ``unified_fused_request`` off (48 lm_head launches a request): kernels,
+   device ms, replay ms, p50 and captions/s of both programs side by side;
+   one request with the serving presets (its first: the capture included);
 5. decode configurations, each as in 4 (graph beside its eager twin): one
-   engine with ``compile.use_pallas_decode_attention`` and one with
-   ``compile.use_pallas_decode_layer`` (the default engine's parameters),
-   launch counts read around the graph's requests, and the sampled
-   (``natural``) group timed alone, eagerly, beside the default engine's;
-   then one with ``compile.deferred_decode_cache_write``, which must launch
+   engine with ``compile.use_pallas_decode_attention`` (and
+   ``unified_fused_request`` off: the unified loop runs beam steps only and
+   never reaches that kernel) and one with ``compile.use_pallas_decode_layer``
+   (the default engine's parameters), launch counts read around the
+   graph's requests, and the sampled (``natural``) group timed alone,
+   eagerly, beside the default engine's; then one with
+   ``compile.deferred_decode_cache_write``, which must launch
    beam_attention (in its deferred mode) as often per request as the
    default engine and neither fused-decode kernel;
 6. reference: the prefix and the prefill logits against the plain path in
    f32 on the CPU on a 2-frame input; for each fused-decode engine and the
    deferred engine the logits of 4 K=1 decode steps, and for the default and
    the deferred engine the logits of 4 beam-3 steps (a fixed ancestry with
-   reordered beams), against the same steps in f32 on the CPU;
-7. mapper trainer: ``cli/train_caption_mapper.main`` on a synthetic
+   reordered beams), against the same steps in f32 on the CPU; the logits
+   of 4 steps of the unified layout (9 rows) against the grouped programs'
+   (6 beam rows, one K=1 row) on the card;
+7. batches: ``infer_batch`` of 1, 2, 4 and 8 videos on the graph (one graph
+   per batch size, captured on first use) beside an eager twin: ms a batch,
+   captions/s, capture s, and the ids of one more batch identical;
+8. mapper trainer: ``cli/train_caption_mapper.main`` on a synthetic
    annotations file over the same JPEG directories, full-width ViT-B/16 +
    GPT-2 with seeded random weights, bf16 compute, 4 videos x 8 frames, 5
    steps (each synchronised and timed), then a validation pass and a
    best-val checkpoint; the losses must be finite, the mapper must move and
    every other weight stay bit-equal (their rate is 0), and the step must
    launch encoder_attention (frozen forward) and prefix_projector;
-8. joint step: ``training/loop.run_training`` with the stage-1 alignment
+9. joint step: ``training/loop.run_training`` with the stage-1 alignment
    loss of ``cli/train_full.py --model vit`` and ``adamw(1e-4)``, the ViT
    with ``pool="gap"``, f32 and remat, 4 videos x 8 frames, 5 steps; the step
    must launch fused_pool once and encoder_attention twice per layer
    (forward and remat recompute); then the loss and global gradient norm of
    one step at 1 video x 2 frames on the card against the same step in f32
    on the CPU (plain versions);
-9. the kernel table as one JSON line (launches of each kernel's path: the
+10. server: the port's stdlib HTTP server on 127.0.0.1:0, the registry
+   building the serving-preset engine (absent checkpoint: seeded random
+   weights), 16 concurrent clients POST /infer, twice: every answer 200 and
+   well formed, at least one batch of more than one formed by the queue and
+   no request retried alone; batch sizes, client p50/p99, captions/s;
+11. the kernel table as one JSON line (launches of each kernel's path: the
    default engine's requests, each fused-decode engine's, the joint steps'
    for fused_pool), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -94,6 +111,14 @@ NATURAL = ("natural", "Write a short, natural caption:")   # the core set's samp
 SWITCHES = {"decode_attention": "use_pallas_decode_attention",
             "decode_layer": "use_pallas_decode_layer"}
 DEFERRED = "deferred_decode_cache_write"
+GROUPED = "unified_fused_request"          # off: the request decodes group by group
+# launches a request of the default engine (core presets, one unified loop:
+# a prefill and 23 beam steps of 12 layers) and of the grouped program
+UNIFIED_LAUNCHES = {"lm_head": 24, "beam_attention": 276}
+GROUPED_LAUNCHES = {"lm_head": 48, "beam_attention": 276}
+BUCKETS = (1, 2, 4, 8)
+BATCH_REPEATS = 3
+SERVER_CLIENTS = 16
 BEAMS = 3
 # bf16 on the card vs f32 on the CPU through 12 ViT layers (or 12 GPT-2
 # layers): the deployment bf16-vs-f32 bound, relative to the largest value
@@ -187,7 +212,8 @@ def main() -> int:
 
     # ---- 4. engine on the main path
     with tempfile.TemporaryDirectory() as tmp:
-        dirs = make_videos(Path(tmp), 3, 24, IMAGE_SIZE, SEED)
+        all_dirs = make_videos(Path(tmp), max(BUCKETS), 24, IMAGE_SIZE, SEED)
+        dirs = all_dirs[:3]
         ckpt = str(Path(tmp) / "no-checkpoint.pt")      # absent: seeded random weights
         core_cfg = default_inference_config(ckpt=ckpt, num_frames=NUM_FRAMES,
                                             image_size=IMAGE_SIZE)
@@ -202,9 +228,37 @@ def main() -> int:
         if any(launches[n] for n in SWITCHES):
             raise AssertionError(f"the default configuration launched a fused-decode kernel: "
                                  f"{launches}")
+        _require_per_request(launches, UNIFIED_LAUNCHES, TIMED_REQUESTS, "the unified request")
         latencies = pair["graph"]["latencies_s"]
         log(f"engine result: {json.dumps(pair['graph']['results'][0])}")
         report["engine"] = {"presets": "core", "frames": NUM_FRAMES, **pair}
+
+        # the same engine with the unified decode off: the grouped request
+        cfg = dataclasses.replace(core_cfg, compile=dataclasses.replace(
+            core_cfg.compile, **{GROUPED: False}))
+        grouped = InferenceEngine(cfg, params=engine.params, seed=SEED, device="cuda")
+        gpair = _graph_and_eager(f"{GROUPED}=False", grouped, dirs, TIMED_REQUESTS)
+        _require_per_request(gpair["graph"]["launches"], GROUPED_LAUNCHES, TIMED_REQUESTS,
+                             "the grouped request")
+        u, g = pair["graph"], gpair["graph"]
+        same = _identical_share(u["results"], g["results"])
+        # both engines have served the same calls, so their generators
+        # stand at the same offset: one more request's ids, row by row
+        video = engine.load_video(dirs[2])
+        rows = [(a == b).all(axis=1) for a, b in zip(engine.request_ids(video),
+                                                     grouped.request_ids(video))]
+        same_rows = float(sum(r.sum() for r in rows)) / sum(r.size for r in rows)
+        by_group = ", ".join(f"{dp.num_beams}-beam {int(r.sum())}/{r.size}" if dp.num_beams > 1
+                             else f"sampled {int(r.sum())}/{r.size}"
+                             for (dp, *_), r in zip(engine._decode_groups(), rows))
+        log(f"unified vs grouped request (graph, one call): kernels {u['replay_kernels']} vs "
+            f"{g['replay_kernels']}, device {u['replay_device_ms']:.2f} vs "
+            f"{g['replay_device_ms']:.2f} ms, replay {u['replay_ms']:.2f} vs "
+            f"{g['replay_ms']:.2f} ms, p50 {u['p50_s'] * 1000:.1f} vs {g['p50_s'] * 1000:.1f} ms, "
+            f"{u['captions_per_s']:.2f} vs {g['captions_per_s']:.2f} captions/s; captions "
+            f"identical {same:.1%}, id rows identical {same_rows:.1%} ({by_group})")
+        report["engine_grouped"] = {**gpair, "identical_captions_vs_unified": same,
+                                    "identical_id_rows_vs_unified": same_rows}
 
         serving = InferenceEngine(serving_inference_config(ckpt=ckpt, num_frames=NUM_FRAMES,
                                                            image_size=IMAGE_SIZE),
@@ -224,8 +278,16 @@ def main() -> int:
         log(f"engine default: natural group alone {natural_ms['default']:.1f} ms (median of 3)")
         fused = {}
         for kernel, switch in SWITCHES.items():
+            # decode_attention serves the K=1 steps of the grouped sampled
+            # group; the unified loop runs every group through beam steps,
+            # so its engine decodes group by group (decode_layer's engine
+            # does anyway: the unified loop does not take its flat cache)
+            off = {GROUPED: False} if kernel == "decode_attention" else {}
             cfg = dataclasses.replace(core_cfg, compile=dataclasses.replace(
-                core_cfg.compile, **{switch: True}))
+                core_cfg.compile, **{switch: True}, **off))
+            if off:
+                log(f"engine {switch}=True with {GROUPED}=False: the unified request never "
+                    f"reaches {kernel} (beam steps only)")
             eng = InferenceEngine(cfg, params=engine.params, seed=SEED, device="cuda")
             pair = _graph_and_eager(switch, eng, dirs, FUSED_REQUESTS)
             counts = pair["graph"]["launches"]
@@ -291,6 +353,10 @@ def main() -> int:
             report["reference"][f"{name} {kind} steps_rel_err"] = err
             if not (finite and err < REL_TOL):
                 raise AssertionError(f"the {name} {kind} steps disagree with the f32 plain path")
+        report["reference"]["unified_vs_grouped"] = _unified_vs_grouped(engine, pre_gpu, v)
+
+        # ---- infer_batch at every bucket, graph beside eager
+        report["batches"] = _batch_phase(engine, all_dirs)
 
         # ---- 7. and 8. the two trainers
         ann = Path(tmp) / "annotations.json"
@@ -301,6 +367,9 @@ def main() -> int:
         report["mapper_trainer"] = _mapper_trainer_phase(Path(tmp), ann)
         report["joint_step"] = _joint_step_phase(Path(tmp), ann)
         launches["fused_pool"] = report["joint_step"]["launches"]["fused_pool"]
+
+        # ---- the HTTP server with its batch queue
+        report["server"] = _server_phase(all_dirs, ckpt)
 
     # ---- 9. summary: launches of each kernel's path (the default engine's
     # requests; the fused-decode kernels', their engines' requests;
@@ -333,12 +402,17 @@ def _graph_and_eager(label, engine, dirs, count):
     """Phases 4 and 5 for one configuration: ``engine`` on the request
     graph (its configuration's default) and its eager twin (the same
     configuration with ``aot_request_program`` off, the same seed and
-    parameters), each warmed up, serving the same ``count`` requests; then
-    the ids of one more request on each, and one replay under
-    torch.profiler. Fails unless the results and the ids are identical and
-    the profiler's count of the port's kernels in the replay equals the
-    wrappers' counters' delta. The graph's ``launches`` are its timed
-    requests'."""
+    parameters: it serves a request group by group, ``generate_presets``),
+    each warmed up, serving the same ``count`` requests; then the ids of
+    one more request on each (the eager engine runs the same request
+    program op by op), the host-clock time of 5 replays with the ids' copy
+    back, and one replay under torch.profiler. Fails unless the ids are
+    identical, the results too where the request program decodes group by
+    group as the eager path does (else their share of identical captions
+    is printed: a unified loop runs other row counts, and bf16 products on
+    random weights may then pick another token), and the profiler's count
+    of the port's kernels in the replay equals the wrappers' counters'
+    delta. The graph's ``launches`` are its timed requests'."""
     from video_caption_tpu_torch.cli.profile_request import profile_call
     from video_caption_tpu_torch.engine import InferenceEngine
 
@@ -361,7 +435,10 @@ def _graph_and_eager(label, engine, dirs, count):
                      "captions_per_s": 1.0 / statistics.mean(lat),
                      "peak_added_bytes": torch.cuda.max_memory_allocated() - before,
                      "launches": counts, "results": res}
-    if out["graph"]["results"] != out["eager"]["results"]:
+    _, groups = engine._fused_infer_program()
+    unified = engine._unified_eligible(groups, fused_program=True)
+    same = _identical_share(out["graph"]["results"], out["eager"]["results"])
+    if not unified and same != 1.0:
         raise AssertionError(f"{label}: the graph's results differ from the eager path's: "
                              f"{out['graph']['results']} vs {out['eager']['results']}")
     video = engine.load_video(dirs[0])
@@ -371,6 +448,12 @@ def _graph_and_eager(label, engine, dirs, count):
         raise AssertionError(f"{label}: the graph's ids differ from the program's run op by op: "
                              f"{ids}")
     graph = engine.request_graph(video)
+    replays = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.request_ids(video)
+        replays.append((time.perf_counter() - t0) * 1000)
     before = _kernel_counts()
     prof = profile_call(lambda: graph.replay(video))
     delta = {n: c - before[n] for n, c in _kernel_counts().items() if c != before[n]}
@@ -378,7 +461,7 @@ def _graph_and_eager(label, engine, dirs, count):
         raise AssertionError(f"{label}: the profiler saw {prof['wrapper_launches']} launches in "
                              f"one replay, the counters {delta}")
     out["graph"].update(capture_s=graph.capture_s, capture_warmup_s=graph.warmup_s,
-                        replay_kernels=prof["kernels"],
+                        replay_ms=statistics.median(replays), replay_kernels=prof["kernels"],
                         replay_device_ms=prof["device_ms"], replay_busy_share=prof["busy_share"],
                         replay_launches=delta)
     g, e = out["graph"], out["eager"]
@@ -388,12 +471,26 @@ def _graph_and_eager(label, engine, dirs, count):
         f"+{g['peak_added_bytes'] / 2**20:.0f} MiB; eager "
         f"{[round(x * 1000, 1) for x in e['latencies_s']]} ms, p50 {e['p50_s'] * 1000:.1f} ms, "
         f"{e['captions_per_s']:.2f} captions/s, peak +{e['peak_added_bytes'] / 2**20:.0f} MiB")
-    log(f"engine {label}: results identical over {count} requests, ids identical "
-        f"({[a.shape for a in ids[0]]}); one replay: {prof['kernels']} kernels, "
-        f"{prof['device_ms']:.2f} ms device, busy {prof['busy_share']:.1%}, the port's kernels "
+    log(f"engine {label}: request program {'unified' if unified else 'grouped'}, eager "
+        f"grouped; captions identical {same:.1%} over {count} requests, ids identical "
+        f"({[a.shape for a in ids[0]]}); replay with the ids' copy {g['replay_ms']:.2f} ms "
+        f"(median of 5); one replay: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms "
+        f"device, busy {prof['busy_share']:.1%}, the port's kernels "
         f"{prof['wrapper_launches']} = counters' delta; launches over the graph's requests "
         f"{g['launches']}")
-    return {**out, "ids_identical": same_ids}
+    return {**out, "ids_identical": same_ids, "unified": unified, "identical_captions": same}
+
+
+def _identical_share(a, b) -> float:
+    """Share of the captions (S1-S3 of each result) two result lists agree on."""
+    pairs = [(x[k], y[k]) for x, y in zip(a, b) for k in ("S1", "S2", "S3")]
+    return sum(p == q for p, q in pairs) / len(pairs)
+
+
+def _require_per_request(launches, want, requests, path):
+    got = {name: launches[name] / requests for name in want}
+    if got != want:
+        raise AssertionError(f"{path} launched {got} per request, not {want}")
 
 
 def _timed_requests(engine, dirs, count):
@@ -641,11 +738,13 @@ def _decode_logits(params, cfg, embeds):
     return torch.stack(out)
 
 
-def _beam_decode_logits(params, cfg, embeds):
+def _beam_decode_logits(params, cfg, embeds, sampled=()):
     """Logits [DECODE_STEPS, B*BEAMS, Vp] of beam steps through
     gpt2_beam_step with ``cfg``'s decode configuration after a prefill of
     ``embeds``: each step's beams descend from beams 0, 0, 1 of the last
-    step (the ancestry reorders) and feed fixed tokens."""
+    step (the ancestry reorders) and feed fixed tokens. The blocks listed
+    in ``sampled`` take the unified decode's sampled layout instead: every
+    row keeps identity ancestry, its k=0 row live."""
     from video_caption_tpu_torch.decode import generate as gen
     from video_caption_tpu_torch.models import gpt2 as g2
 
@@ -658,6 +757,8 @@ def _beam_decode_logits(params, cfg, embeds):
     rows = torch.arange(r, dtype=torch.int32, device=dev)
     first = (rows // BEAMS) * BEAMS
     parent = first + torch.tensor([0, 0, 1], device=dev).repeat(b)
+    for block in sampled:
+        parent[block * BEAMS:(block + 1) * BEAMS] = rows[block * BEAMS:(block + 1) * BEAMS]
     anc = torch.zeros((r, DECODE_STEPS), dtype=torch.int32, device=dev)
     out = []
     for t, token in enumerate((32, 97, 32, 109)[:DECODE_STEPS]):
@@ -670,6 +771,172 @@ def _beam_decode_logits(params, cfg, embeds):
             gen_cache, anc, t, BEAMS, cfg, wte_t)
         out.append(logits)
     return torch.stack(out)
+
+
+def _unified_vs_grouped(engine, prefix, vocab):
+    """The first DECODE_STEPS decode steps' logits of the two programs on
+    the card, on the same inputs (three instances of one prefix with
+    prompts of the core presets' longest length, 44 tokens, so the prefill
+    is 48 columns wide as in a request; fixed tokens and ancestry): the
+    unified layout (9 rows: two beam-3 blocks and a sampled block) against
+    the grouped beam-3 group (6 rows) and the K=1 steps of the sampled row.
+    Fails unless each is within REL_TOL of the other."""
+    from video_caption_tpu_torch.models import caption_model as cm
+
+    ids = torch.randint(32, 127, (3, 44), generator=torch.Generator("cuda").manual_seed(SEED),
+                        device="cuda")
+    params, mc = engine.params, engine.model_cfg
+    with torch.inference_mode():
+        embeds = cm.build_decoder_inputs(params, prefix.repeat(3, 1, 1), ids, mc)
+        uni = _beam_decode_logits(params["decoder"], mc.gpt2, embeds, sampled=(2,))
+        beam = _beam_decode_logits(params["decoder"], mc.gpt2, embeds[:2])
+        k1 = _decode_logits(params["decoder"], mc.gpt2, embeds[2:])
+    beam_err = rel_err(uni[:, :6, :vocab], beam[..., :vocab])
+    sampled_err = rel_err(uni[:, 6, :vocab], k1[:, 0, :vocab])
+    log(f"unified vs grouped: {DECODE_STEPS} steps' logits after a 48-column prefill, of the beam "
+        f"rows (R=9 vs R=6) rel err "
+        f"{beam_err:.3e}, of the sampled row (beam step vs K=1 step) {sampled_err:.3e} (bound "
+        f"{REL_TOL:g})")
+    if not (beam_err < REL_TOL and sampled_err < REL_TOL):
+        raise AssertionError("the unified program's logits disagree with the grouped program's")
+    return {"beam_rows_rel_err": beam_err, "sampled_row_rel_err": sampled_err}
+
+
+def _batch_phase(engine, dirs):
+    """infer_batch at every bucket of the serving queue on a graph engine and
+    its eager twin (the default configuration, the same parameters and
+    seed, each its own video cache): one batch each (the graph's capture
+    for that size), BATCH_REPEATS timed batches (their videos from the
+    cache), then the ids of one more on each, which must be identical."""
+    from video_caption_tpu_torch.engine import InferenceEngine
+
+    cfg = engine.config
+    engines = {"graph": InferenceEngine(cfg, params=engine.params, seed=SEED, device="cuda"),
+               "eager": InferenceEngine(dataclasses.replace(cfg, compile=dataclasses.replace(
+                   cfg.compile, aot_request_program=False)), params=engine.params, seed=SEED,
+                   device="cuda")}
+    out = {}
+    for v in BUCKETS:
+        batch, row = dirs[:v], {"videos": v}
+        for mode, eng in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = eng.infer_batch(batch)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            times = []
+            for _ in range(BATCH_REPEATS):
+                t0 = time.perf_counter()
+                results = eng.infer_batch(batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            for r in results:
+                _check_result(r.to_api_dict())
+            video = eng._load_videos(batch)
+            row[mode] = {"first_batch_s": first_s, "batch_ms": [t * 1000 for t in times],
+                         "median_batch_ms": statistics.median(times) * 1000,
+                         "captions_per_s": v / statistics.median(times),
+                         "ids": eng.request_ids(video),
+                         "results": [r.to_api_dict() for r in results]}
+        graph = engines["graph"].request_graph(video)
+        row["graph"]["capture_s"] = graph.capture_s
+        same = all(a.shape == b.shape and (a == b).all()
+                   for a, b in zip(row["graph"].pop("ids"), row["eager"].pop("ids")))
+        if not same:
+            raise AssertionError(f"infer_batch of {v}: the graph's ids differ from the eager ids")
+        g, e = row["graph"], row["eager"]
+        log(f"infer_batch V={v}: graph {g['median_batch_ms']:.1f} ms a batch "
+            f"{[round(x, 1) for x in g['batch_ms']]}, {g['captions_per_s']:.2f} captions/s, "
+            f"capture {g['capture_s']:.2f} s (first batch {g['first_batch_s']:.2f} s); eager "
+            f"{e['median_batch_ms']:.1f} ms, {e['captions_per_s']:.2f} captions/s; ids identical")
+        out[v] = row
+    return out
+
+
+def _server_phase(dirs, ckpt):
+    """The port's stdlib server on 127.0.0.1:0 with the registry building
+    the serving engine (serving presets, 16 frames, an absent checkpoint:
+    seeded random weights) and warming it as ``cli/serve.py --warmup``
+    does; then two rounds of SERVER_CLIENTS concurrent POST /infer (the
+    first captures each batch size's graph as the queue forms it). Every
+    response must be 200 and well formed; fails unless a batch of more
+    than one formed and no request was retried alone."""
+    import concurrent.futures
+    import urllib.request
+
+    from video_caption_tpu_torch.server.schemas import InferRequest
+    from video_caption_tpu_torch.server.services import batching_queue
+    from video_caption_tpu_torch.server.services.inference_service import request_to_config
+    from video_caption_tpu_torch.server.services.model_registry import MODEL_REGISTRY
+    from video_caption_tpu_torch.server.stdlib_server import StdlibServer
+
+    def payload(d):
+        return {"frames_dir": d, "ckpt": ckpt, "num_frames": NUM_FRAMES, "image_size": IMAGE_SIZE}
+
+    t0 = time.perf_counter()
+    engine = MODEL_REGISTRY.get_engine(request_to_config(InferRequest.from_payload(
+        payload(dirs[0]))))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    warm_s = engine.warmup()
+    sizes, retries = [], []
+    bucket, infer = batching_queue.BatchingQueue._bucket_size, engine.infer
+    batching_queue.BatchingQueue._bucket_size = staticmethod(
+        lambda n: (sizes.append(n), bucket(n))[1])
+    engine.infer = lambda d: (retries.append(d), infer(d))[1]
+    server = StdlibServer("127.0.0.1", 0).start()
+
+    def post(d):
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}/infer",
+                                     data=json.dumps(payload(d)).encode(),
+                                     headers={"Content-Type": "application/json"}, method="POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read()), time.perf_counter() - t
+
+    rounds, warmed = [], []
+    try:
+        with concurrent.futures.ThreadPoolExecutor(SERVER_CLIENTS) as pool:
+            for i in range(2):
+                if i:
+                    # the batch sizes the first round did not form, captured
+                    # here while the queue is idle: the second round is warm
+                    warmed = [v for v in BUCKETS if v not in {k[0] for k in engine._graphs}]
+                    for v in warmed:
+                        engine.infer_batch(dirs[:v])
+                before = len(sizes)
+                t0 = time.perf_counter()
+                answers = list(pool.map(post, [dirs[i % len(dirs)]
+                                               for i in range(SERVER_CLIENTS)]))
+                wall = time.perf_counter() - t0
+                for status, body, _ in answers:
+                    if status != 200:
+                        raise AssertionError(f"the server answered {status}: {body}")
+                    _check_result(body)
+                lat = sorted(a[2] * 1000 for a in answers)
+                rounds.append({"batch_sizes": sizes[before:], "latency_ms": lat,
+                               "p50_ms": statistics.median(lat),
+                               "p99_ms": lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)],
+                               "captions_per_s": SERVER_CLIENTS / wall, "wall_s": wall})
+    finally:
+        server.stop()
+        batching_queue.get_queue(engine).stop()
+        batching_queue.BatchingQueue._bucket_size = bucket
+        engine.infer = infer
+    for i, r in enumerate(rounds):
+        kind = "graph captures" if i == 0 else f"warm: {warmed} captured before it"
+        log(f"server round {i + 1} ({kind}): "
+            f"{SERVER_CLIENTS} concurrent clients, all 200; batches formed {r['batch_sizes']}; "
+            f"client p50 {r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, "
+            f"{r['captions_per_s']:.2f} captions/s")
+    log(f"server: engine built by the registry in {build_s:.2f} s, warmed in {warm_s:.2f} s; "
+        f"per-request retries {len(retries)}; graphs {sorted(k[0] for k in engine._graphs)}")
+    if max(n for r in rounds for n in r["batch_sizes"]) < 2:
+        raise AssertionError(f"the queue formed no batch of more than one: {rounds}")
+    if retries:
+        raise AssertionError(f"the queue retried {len(retries)} requests one by one")
+    return {"build_s": build_s, "warmup_s": warm_s, "rounds": rounds, "retries": len(retries),
+            "warmed_before_round_2": warmed}
 
 
 def _leaves(tree):

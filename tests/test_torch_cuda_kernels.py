@@ -47,7 +47,7 @@ def test_prefix_projector_kernel(cuda, rows):
     _assert_ok(selfcheck.check_prefix_projector(rows, cuda))
 
 
-@pytest.mark.parametrize("rows", [1, 6, 9, 15, 16, 17, 63, 64, 65, 192, 256, 300])
+@pytest.mark.parametrize("rows", [1, 6, 9, 12, 15, 16, 17, 24, 63, 64, 65, 96, 192, 256, 300])
 def test_lm_head_kernel(cuda, rows):
     _assert_ok(selfcheck.check_lm_head(rows, cuda))
 
@@ -74,6 +74,25 @@ def test_lm_head_kernel_small_vocab(cuda, rows):
 def test_beam_attention_kernel(cuda, videos, beams, steps, t, deferred):
     _assert_ok(selfcheck.check_beam_attention(videos, beams, 12, steps, t, cuda,
                                               deferred=deferred))
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+@pytest.mark.parametrize("videos,beams,steps,live", [
+    (3, 3, 24, (3, 3, 1)),          # the unified request, core presets
+    (3, 4, 40, (3, 4, 1)),          # serving presets: a dead row, a sampled row, 3 dead
+])
+def test_beam_attention_kernel_unified_blocks(cuda, videos, beams, steps, live, deferred):
+    """The unified decode's layout: dead and sampled rows with identity
+    ancestry inside their instance's block, at t = 0, N/2 and N-1."""
+    for t in (0, steps // 2, steps - 1):
+        _assert_ok(selfcheck.check_beam_attention(videos, beams, 48, steps, t, cuda,
+                                                  deferred=deferred, live=live))
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+def test_beam_attention_kernel_batch_of_eight(cuda, deferred):
+    """A batch of 8 videos' beam group with two presets: 16 instances x 3."""
+    _assert_ok(selfcheck.check_beam_attention(16, 3, 48, 24, 12, cuda, deferred=deferred))
 
 
 def _beam_call(case, t, beams, heads, deferred, fn=None):
@@ -601,3 +620,53 @@ def test_build_engine_captures_the_three_stages(cuda, tmp_path):
     assert list(report) == ["encoder", "projector", "decoder"]
     for stage in report.values():
         assert stage["compile_s"] > 0 and stage["flops"] is None
+
+
+def _full_width_engines(tmp_path, **compile_kw):
+    """A full-width engine (seeded random weights, 2 frames) on the request
+    graph and its eager twin on the same parameters and seed."""
+    import dataclasses
+
+    from video_caption_tpu_torch.config import default_inference_config
+    from video_caption_tpu_torch.engine import InferenceEngine
+
+    cfg = default_inference_config(ckpt=str(tmp_path / "absent.pt"), num_frames=2)
+    cfg = dataclasses.replace(cfg, compile=dataclasses.replace(cfg.compile, **compile_kw))
+    graph = InferenceEngine(cfg, seed=4)
+    eager = InferenceEngine(dataclasses.replace(cfg, compile=dataclasses.replace(
+        cfg.compile, aot_request_program=False)), params=graph.params, seed=4)
+    return graph, eager
+
+
+def _videos(cuda, counts):
+    g = torch.Generator(cuda).manual_seed(0)
+    return [torch.randint(0, 256, (v, 2, 3, 224, 224), generator=g, device=cuda,
+                          dtype=torch.uint8) for v in counts]
+
+
+def test_request_and_batch_graphs_draw_what_eager_draws(cuda, tmp_path):
+    """A bucket-2 graph and the single-request graph, both registering the
+    engine's generator, replayed in turns: every replay's ids (the sampled
+    group's included) equal the same programs run op by op in that order."""
+    import numpy as np
+
+    graph, eager = _full_width_engines(tmp_path)
+    for video in _videos(cuda, (2, 1, 2, 1, 1, 2)):
+        for got, want in zip(graph.request_ids(video), eager.request_ids(video)):
+            assert np.array_equal(got, want)
+    assert sorted(k[0] for k in graph._graphs) == [1, 2] and not eager._graphs
+
+
+def test_dispatch_before_collect_keeps_each_batchs_ids(cuda, tmp_path):
+    """Two dispatches of one bucket's graph before either is collected: each
+    handle's pinned copy holds its own batch's ids (stream order puts the
+    second replay after the first copy)."""
+    import numpy as np
+
+    graph, eager = _full_width_engines(tmp_path)
+    videos = _videos(cuda, (4, 4))
+    handles = [graph._dispatch_videos(v) for v in videos]
+    assert all(h.ids.is_pinned() and h.done is not None for h in handles)
+    for h, v in zip(handles, videos):
+        for got, want in zip(graph._collect_ids(h), eager.request_ids(v)):
+            assert np.array_equal(got, want)

@@ -1,4 +1,5 @@
-"""The port imports nothing of the JAX package and no JAX, and its own copies
+"""The port imports nothing of the JAX package and no JAX (nor pydantic or
+fastapi, which the card's machine lacks), and its own copies
 of the reference's JAX-free modules (config, datatypes, tokenizer, presets,
 post-processing, frame loading, the training data loader) behave as the
 originals do."""
@@ -43,10 +44,14 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         "for name in ('training.loop', 'training.mapper_trainer', 'training.optim',\n"
         "             'training.checkpoint', 'models.align', 'models.toy', 'ops.fused_pool',\n"
         "             'data.data_loader', 'cli.train_caption_mapper', 'cli.train_full',\n"
-        "             'cli.train', 'cli.train_decoder_only', 'cli.profile_training'):\n"
+        "             'cli.train', 'cli.train_decoder_only', 'cli.profile_training',\n"
+        "             'decode.unified', 'server.schemas', 'server.settings',\n"
+        "             'server.stdlib_server', 'server.services.batching_queue',\n"
+        "             'server.services.inference_service', 'server.services.model_registry',\n"
+        "             'server.services.task_manager', 'cli.serve'):\n"
         "    assert p.__name__ + '.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-        "'video_caption_tpu'))\n"
+        "'video_caption_tpu', 'pydantic', 'fastapi', 'uvicorn', 'starlette'))\n"
         "assert not bad, bad\n"
         "assert len(names) > 20, names\n"
     )

@@ -80,7 +80,15 @@ class RequestGraph:
         so none of it happens inside the capture. The ``generators`` are
         set back to their state before that run and registered with the
         graph: every replay then draws what the same call made eagerly
-        would draw, and advances them as much. Raises if the capture fails;
+        would draw, and advances them as much. Several graphs may register
+        one generator: each replay reads the generator's offset when it is
+        issued and advances it by its capture's draws, so replays in any
+        order draw what the eager calls in that order draw.
+
+        The capture runs in ``thread_local`` mode: only the capturing
+        thread is refused calls that are unsafe during a capture, so a
+        server thread that builds another engine meanwhile (allocations,
+        uploads) does not invalidate it. Raises if the capture fails;
         there is no fallback."""
         device = _require_cuda_device(example.device)
         t0 = time.perf_counter()
@@ -98,7 +106,7 @@ class RequestGraph:
         for g in generators:
             graph.register_generator_state(g)
         before = launch_counts()
-        with torch.cuda.graph(graph, stream=stream):
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
             outputs = fn(static_input)
         torch.cuda.synchronize(device)
         launches = {m: n - before[m] for m, n in launch_counts().items() if n != before[m]}

@@ -4,10 +4,14 @@ of the port, on the request graph (the default) or eagerly.
     python -m video_caption_tpu_torch.cli.profile_request [--eager] [--requests 6] [--trace-dir DIR]
 
 Builds the full-width engine (ViT-B/16 + GPT-2 124M, seeded random bf16
-weights, 16 frames of 224x224 JPEGs, core presets) once per configuration:
-the default, ``compile.use_pallas_decode_attention``,
-``compile.use_pallas_decode_layer`` and
-``compile.deferred_decode_cache_write``, all on the same weights. By
+weights, 16 frames of 224x224 JPEGs, core presets) once per configuration
+(``CONFIGS``): the default (the request's groups in one unified loop),
+``grouped`` (``compile.unified_fused_request`` off),
+``compile.use_pallas_decode_attention`` (with the unified loop off, which
+never reaches that kernel), ``compile.use_pallas_decode_layer`` and
+``compile.deferred_decode_cache_write``, all on the same weights. Requests
+cycle over 3 frame directories, so from the fourth on the frames come from
+the engine's video cache (``frame_load`` is then a cache hit). By
 default each engine serves a request by replaying its captured request
 graph (``compile.aot_request_program``, on by default); ``--eager`` builds
 them with it off, so the request runs op by op. For each:
@@ -51,8 +55,17 @@ import torch
 
 from video_caption_tpu_torch.ops import build
 
-CONFIGS = ("default", "use_pallas_decode_attention", "use_pallas_decode_layer",
-           "deferred_decode_cache_write")
+CONFIGS = {
+    "default": {},
+    "grouped": {"unified_fused_request": False},
+    # the unified request runs beam steps only: decode_attention serves the
+    # grouped sampled group
+    "use_pallas_decode_attention": {"use_pallas_decode_attention": True,
+                                    "unified_fused_request": False},
+    "use_pallas_decode_layer": {"use_pallas_decode_layer": True},
+    "deferred_decode_cache_write": {"deferred_decode_cache_write": True},
+}
+"""Each configuration's compile switches over the default."""
 LAUNCH_KERNELS = {
     "attention_bf16_kernel": "encoder_attention", "attention_f32_kernel": "encoder_attention",
     "prefix_projector_kernel": "prefix_projector", "lm_head_row_stats_kernel": "lm_head",
@@ -229,8 +242,8 @@ def main(argv=None) -> int:
         mode = "eager" if args.eager else "graph"
         params = None
         for name in CONFIGS:
-            cfg = base if name == "default" else dataclasses.replace(
-                base, compile=dataclasses.replace(base.compile, **{name: True}))
+            cfg = dataclasses.replace(base, compile=dataclasses.replace(base.compile,
+                                                                      **CONFIGS[name]))
             engine = InferenceEngine(cfg, params=params, seed=args.seed, device="cuda")
             params = engine.params
             _, warmup_ms = _timed(engine.warmup)

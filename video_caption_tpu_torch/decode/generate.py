@@ -8,7 +8,9 @@ Python loops over steps in the JAX package's forward-then-select order:
 token t is selected in the step whose forward produced its logits. Every
 step runs the full ``max_new_tokens``; finished rows keep stepping with
 their outputs frozen to EOS (the JAX ``early_stop`` option gives the same
-tokens and is not ported).
+tokens and is not ported). A sampled decode draws the Gumbel noise of all
+its steps at once before its first step (``sample_noise``), as the unified
+decode does for each sampled group, so both take the same draws.
 
 do_sample gating is the reference's rule:
 ``do_sample = (num_beams == 1 and temperature != 1.0)``.
@@ -111,6 +113,20 @@ def sample_select(
     return token, generated, finished | (token == dp.eos_id)
 
 
+def sample_noise(dp: DecodeParams, rows: int, vocab_padded: int,
+                 generator: Optional[torch.Generator], device) -> Optional[torch.Tensor]:
+    """The Gumbel noise of every step of a sampled decode of ``rows`` rows,
+    [max_new_tokens, rows, min(top_k, vocab_padded)], drawn at once; None
+    for a greedy or beam policy, which draws nothing. Every sampled decode
+    (``greedy_or_sample``, ``unified.generate_unified``) draws its noise
+    here, before its first step, so programs that decode the same groups
+    in the same order take the same draws from one generator."""
+    if not dp.do_sample:
+        return None
+    return lp.gumbel_noise((dp.max_new_tokens, rows, min(dp.top_k, vocab_padded)), generator,
+                           device)
+
+
 def greedy_or_sample(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor,
                      dp: DecodeParams, generator: Optional[torch.Generator] = None,
                      prefill_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -126,12 +142,14 @@ def greedy_or_sample(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor,
         # does, once, so a captured request replays no cast)
         params = g2.prepare_decode_params(params, cfg)
     wte_t = g2.lm_head_t(params, cfg)
+    noise = sample_noise(dp, b, wte_t.shape[1], generator, device)
     (logits, wmax, _, _), cache, valid, row_len = _prefill(
         params, cfg, inputs_embeds, s0 + n, prefill_mask, wte_t, split=False, row_stats=False)
     generated = torch.full((b, n), dp.eos_id, dtype=torch.int64, device=device)
     finished = torch.zeros((b,), dtype=torch.bool, device=device)
     token, generated, finished = sample_select(logits, generated, finished, 0, dp,
-                                               generator, wmax=wmax)
+                                               generator, wmax=wmax,
+                                               noise=None if noise is None else noise[0])
     for t in range(1, n):
         # forward of token t-1: its K/V lands at cache column s0 + t - 1
         embeds = params["wte"][token][:, None, :]
@@ -141,7 +159,8 @@ def greedy_or_sample(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor,
             params, embeds, positions, valid, cache, s0 + t - 1, cfg,
             wte_t=wte_t, return_stats=True, row_stats=False)
         token, generated, finished = sample_select(logits, generated, finished, t, dp,
-                                                   generator, wmax=wmax)
+                                                   generator, wmax=wmax,
+                                                   noise=None if noise is None else noise[t])
     return generated
 
 
@@ -256,7 +275,15 @@ def generate_prefixed(params, cfg: g2.GPT2Config, prefix: torch.Tensor,
     embeds = torch.cat([prefix.to(tok.dtype), tok], dim=1)
     mask = torch.cat([torch.ones(prefix.shape[:2], dtype=torch.int32, device=prefix.device),
                       prompt_mask.to(torch.int32)], dim=1)
+    return generate(params, cfg, embeds, dp, generator, mask)
+
+
+def generate(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor, dp: DecodeParams,
+             generator: Optional[torch.Generator] = None,
+             prefill_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Beam search when the policy has beams, else greedy or sampled decode;
+    ids [B, max_new_tokens]."""
     if dp.num_beams > 1:
-        return beam_search(params, cfg, embeds, dp, mask)
-    return greedy_or_sample(params, cfg, embeds, dp, generator, mask)
+        return beam_search(params, cfg, inputs_embeds, dp, prefill_mask)
+    return greedy_or_sample(params, cfg, inputs_embeds, dp, generator, prefill_mask)
 

@@ -66,7 +66,7 @@ from __future__ import annotations
 
 import statistics
 from dataclasses import asdict, dataclass
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -294,11 +294,16 @@ def check_lm_head(rows: int, device="cuda", h: int = 768, vocab: int = 50257,
 
 
 def beam_attention_case(videos: int, beams: int, prefill: int, steps: int, device="cuda",
-                        heads: int = 12, dtype=torch.bfloat16, seed: int = 3):
+                        heads: int = 12, dtype=torch.bfloat16, seed: int = 3,
+                        live: Optional[Sequence[int]] = None):
     """Seeded inputs of one layer of a beam step: q, k_new, v_new [R, H] as
     the strided thirds of one fused [R, 3H] QKV output, gkv [N, 2, R, H],
     pk/pv [B, S0, H], valid [B, S0] (the first video left-padded by a
-    quarter), anc [R, N] rows of the row's own video."""
+    quarter), anc [R, N] rows of the row's own video (block). ``live``
+    gives the unified decode's layout (decode/unified.py): per block, its
+    live rows; a block's first ``live[b]`` rows (more than one: a beam
+    group) draw their ancestors among themselves, and the rest, like the
+    one row of a sampled block (``live[b]`` 1), keep identity ancestry."""
     g = _gen(device, seed)
     h, r = heads * 64, videos * beams
     qkv = torch.randn((r, 3 * h), generator=g, device=device).to(dtype)
@@ -307,18 +312,25 @@ def beam_attention_case(videos: int, beams: int, prefill: int, steps: int, devic
     pv = torch.randn((videos, prefill, h), generator=g, device=device).to(dtype)
     valid = torch.ones((videos, prefill), dtype=torch.int32, device=device)
     valid[0, : prefill // 4] = 0
-    own = torch.randint(0, beams, (r, steps), generator=g, device=device)
-    anc = ((torch.arange(r, device=device)[:, None] // beams) * beams + own).to(torch.int32)
+    rows = torch.arange(r, device=device)
+    live_of = torch.full((r,), beams, device=device) if live is None else \
+        torch.tensor(live, device=device).repeat_interleave(beams)
+    own = (torch.rand((r, steps), generator=g, device=device) * live_of[:, None]).long()
+    anc = (rows[:, None] // beams) * beams + own
+    identity = (live_of == 1) | (rows % beams >= live_of)
+    anc = torch.where(identity[:, None], rows[:, None], anc).to(torch.int32)
     return qkv[:, :h], qkv[:, h:2 * h], qkv[:, 2 * h:], gkv, pk, pv, valid, anc
 
 
 def check_beam_attention(videos: int, beams: int, prefill: int, steps: int, t: int,
                          device="cuda", heads: int = 12, deferred: bool = False,
-                         dtype=torch.bfloat16, seed: int = 3) -> CheckResult:
+                         dtype=torch.bfloat16, seed: int = 3,
+                         live: Optional[Sequence[int]] = None) -> CheckResult:
     """One call of either mode; in f32 held to 1e-4 / 1e-4 (f32 sums over
-    64 dims and the columns in another order)."""
+    64 dims and the columns in another order). ``live``: the unified
+    decode's blocks (``beam_attention_case``)."""
     q, k_new, v_new, gkv, pk, pv, valid, anc = beam_attention_case(
-        videos, beams, prefill, steps, device, heads, dtype, seed)
+        videos, beams, prefill, steps, device, heads, dtype, seed, live)
     r, h = q.shape
     args = (q, gkv, pk, pv, valid, anc, t, beams, heads)
     kw = dict(k_new=k_new, v_new=v_new) if deferred else {}
@@ -337,8 +349,9 @@ def check_beam_attention(videos: int, beams: int, prefill: int, steps: int, t: i
     work = (bytes_, 4 * h * int((vis + read + int(deferred)).sum()), q.dtype)
     kind = "f32" if dtype == torch.float32 else "bf16"
     tol = (1e-4, 1e-4, False) if dtype == torch.float32 else None
+    blocks = "" if live is None else f" unified live {tuple(live)}"
     return _result("beam_attention", f"R={r} (B={videos},K={beams}) S0={prefill} N={steps} t={t} "
-                   f"{kind}{' deferred' if deferred else ''}",
+                   f"{kind}{' deferred' if deferred else ''}{blocks}",
                    [got], [want], lambda: ba.beam_attention(*args, **kw),
                    lambda: ba.beam_attention_ref(*args, **kw), work, tol=tol)
 
@@ -594,27 +607,37 @@ def backward_checks(device="cuda") -> List[BackwardResult]:
 
 def main_path_checks(device="cuda") -> List[CheckResult]:
     """Every kernel at the main path's shapes; the first check of each kernel
-    is the single-request shape whose times chip_smoke.py reports (for the
-    two fused-decode kernels, the single-request ``natural`` group: B=1, a
-    64-column cache; for fused_pool, the joint training step's 4 videos x 8
-    frames in f32). encoder_attention also runs at the trainers' 4 x 8
-    frames (f32 in the joint step, bf16 in the mapper step), prefix_projector
-    at 1, 8, 4 (the mapper step) and 64 rows, lm_head from one row to 256,
-    beam_attention in both modes at both single-request shapes (t = N/2, 0,
-    N-1) and at 64 videos x 3 beams (batched serving), decode_attention at
-    B=64 (batched), at B=2, L=300 and B=1, L=1024 (split over a cluster), on
-    a row with no visible column, over stale rows of 1e4, in f32, and at
-    L=4096 (chunks), and decode_layer at B=1 and 8 over 12 layers and one,
-    in f32, over a 1024-row cache and at B=64."""
+    is the single-request shape whose times chip_smoke.py reports (lm_head
+    and beam_attention: the unified request's 9 rows, 3 blocks of 3 with a
+    sampled row and two dead ones; for the two fused-decode kernels, the
+    single-request ``natural`` group: B=1, a 64-column cache; for
+    fused_pool, the joint training step's 4 videos x 8 frames in f32).
+    encoder_attention also runs at the trainers' 4 x 8 frames (f32 in the
+    joint step, bf16 in the mapper step), prefix_projector at 1, 8, 4 (the
+    mapper step) and 64 rows, lm_head from one row to 256 (12: the serving
+    presets' unified request; 24 and 96: batches), beam_attention in both
+    modes at the serving presets' unified blocks (R=12, K_max 4) and at the
+    grouped single-request shapes (t = N/2, 0, N-1), at 16 videos x 3 beams
+    (a batch of 8 with two beam presets) and at 64 x 3 (batched serving),
+    decode_attention at B=64 (batched), at B=2, L=300 and B=1, L=1024 (split
+    over a cluster), on a row with no visible column, over stale rows of
+    1e4, in f32, and at L=4096 (chunks), and decode_layer at B=1 and 8 over
+    12 layers and one, in f32, over a 1024-row cache and at B=64."""
     out = []
     out += [check_encoder_attention(n, device) for n in (16, 128)]
     out += [check_encoder_attention(32, device, dtype=torch.float32),   # joint step
             check_encoder_attention(32, device)]                        # mapper step
     out += [check_prefix_projector(b, device) for b in (1, 8, 4, 64)]   # 4: the mapper step
-    out += [check_lm_head(r, device) for r in (6, 1, 9, 192, 64, 256)]
+    out += [check_lm_head(r, device) for r in (9, 6, 1, 12, 24, 96, 192, 64, 256)]
+    # the unified request's blocks: core presets (beam-3 x 2, natural) and
+    # serving presets (beam-3 with a dead row, beam-4, natural and 3 dead rows)
+    out += [check_beam_attention(3, 3, 48, 24, 12, device, live=(3, 3, 1))]
+    out += [check_beam_attention(3, 4, 48, 40, t, device, deferred=deferred, live=(3, 4, 1))
+            for deferred in (False, True) for t in (20, 0, 39)]
     for videos, beams, prefill, steps in ((2, 3, 48, 24), (1, 4, 48, 40)):
         out += [check_beam_attention(videos, beams, prefill, steps, t, device, deferred=deferred)
                 for deferred in (False, True) for t in (steps // 2, 0, steps - 1)]
+    out += [check_beam_attention(16, 3, 48, 24, 12, device)]   # a batch of 8: 2 presets x 8
     out += [check_beam_attention(64, 3, 48, 24, 12, device, deferred=deferred)   # batched
             for deferred in (False, True)]
     out += [check_decode_attention(b, 64, device) for b in (1, 64)]
