@@ -77,7 +77,19 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    weights), 16 concurrent clients POST /infer, twice: every answer 200 and
    well formed, at least one batch of more than one formed by the queue and
    no request retried alone; batch sizes, client p50/p99, captions/s;
-11. the kernel table as one JSON line (launches of each kernel's path: the
+11. bench: the port's measurement stack (``bench/``) over the default
+   engine's parameters: ``StageBench`` at batch 1 (2 warm-ups, 5
+   iterations, the four report files in a temporary directory; stage
+   means); ``measure_roofline`` of the default engine at batch 1 and 8 and
+   of one with ``compile.unified_decode`` at batch 1 (device ms, GFLOP,
+   GB and the shares of the H100's peaks per stage; a share over 100%
+   fails); the driver (``bench/driver.py``, batch 8, depth 2), which prints
+   its JSON line; one ``serving_load.run_load`` at 8 QPS for 10 s (no
+   error allowed); the accuracy gate (``check_alignment`` at 224x224:
+   72 videos x 4 beams on the card against f32 on the CPU, ``all_ok``
+   required). The kernel counts are read around the phase: the default
+   path's four kernels must launch;
+12. the kernel table as one JSON line (launches of each kernel's path: the
    default engine's requests, each fused-decode engine's, the joint steps'
    for fused_pool), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -93,7 +105,6 @@ import dataclasses
 import json
 import math
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -117,6 +128,9 @@ GROUPED = "unified_fused_request"          # off: the request decodes group by g
 UNIFIED_LAUNCHES = {"lm_head": 24, "beam_attention": 276}
 GROUPED_LAUNCHES = {"lm_head": 48, "beam_attention": 276}
 BUCKETS = (1, 2, 4, 8)
+BENCH_WARMUP, BENCH_ITERS = 2, 5
+ROOFLINE_BATCHES = (1, 8)
+LOAD_QPS, LOAD_SECONDS = 8.0, 10.0
 BATCH_REPEATS = 3
 SERVER_CLIENTS = 16
 BEAMS = 3
@@ -137,12 +151,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     got, want = got.float().cpu(), want.float().cpu()
     return float((got - want).abs().max() / want.abs().max())
@@ -159,12 +167,15 @@ def main() -> int:
     from video_caption_tpu_torch.cli.profile_request import make_videos
     from video_caption_tpu_torch.config import default_inference_config, serving_inference_config
     from video_caption_tpu_torch.engine import InferenceEngine
+    from video_caption_tpu_torch.env import nvidia_smi
     from video_caption_tpu_torch.models import caption_model as cm
     from video_caption_tpu_torch.ops import build, selfcheck
 
     report = {}
     # ---- 1. environment
     smi = nvidia_smi()
+    if smi is None:
+        raise RuntimeError("nvidia-smi is not on PATH: the card's name and power limit are unknown")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -370,6 +381,9 @@ def main() -> int:
 
         # ---- the HTTP server with its batch queue
         report["server"] = _server_phase(all_dirs, ckpt)
+
+        # ---- the measurement stack
+        report["bench"] = _bench_phase(engine, all_dirs, Path(tmp))
 
     # ---- 9. summary: launches of each kernel's path (the default engine's
     # requests; the fused-decode kernels', their engines' requests;
@@ -921,7 +935,7 @@ def _server_phase(dirs, ckpt):
     finally:
         server.stop()
         batching_queue.get_queue(engine).stop()
-        batching_queue.BatchingQueue._bucket_size = bucket
+        batching_queue.BatchingQueue._bucket_size = staticmethod(bucket)
         engine.infer = infer
     for i, r in enumerate(rounds):
         kind = "graph captures" if i == 0 else f"warm: {warmed} captured before it"
@@ -937,6 +951,101 @@ def _server_phase(dirs, ckpt):
         raise AssertionError(f"the queue retried {len(retries)} requests one by one")
     return {"build_s": build_s, "warmup_s": warm_s, "rounds": rounds, "retries": len(retries),
             "warmed_before_round_2": warmed}
+
+
+def _bench_phase(engine, dirs, root: Path) -> dict:
+    """Phase 11: the measurement stack at full width (see the module
+    docstring); the kernel counts set to 0 before it and read after."""
+    import os
+
+    os.environ["BENCH_PIPELINE_DEPTH"] = "2"
+    os.environ["BENCH_TRIALS"] = "3"
+    from video_caption_tpu_torch.bench import accuracy_alignment, benchmark, driver, roofline
+    from video_caption_tpu_torch.bench import serving_load
+    from video_caption_tpu_torch.config import serving_inference_config
+    from video_caption_tpu_torch.engine import InferenceEngine
+    from video_caption_tpu_torch.ops import selfcheck
+    from video_caption_tpu_torch.server.services import batching_queue
+    from video_caption_tpu_torch.server.services.model_registry import MODEL_REGISTRY
+
+    out = {}
+    _reset_kernel_counts()
+    reports = root / "bench_reports"
+    summary = benchmark.run_sweep(engine.config, dirs[0], [1], BENCH_WARMUP, BENCH_ITERS, 24,
+                                  reports, params=engine.params, model_cfg=engine.model_cfg,
+                                  seed=SEED)
+    files = sorted(p.name for p in reports.iterdir())
+    means = {k: summary[k]["mean"] for k in (
+        "Preprocess_Latency", "Preprocess_CUDA_Latency", "ViT_Latency", "Cross_Modal_Alignment",
+        "GPT2_Latency", "GPT2_token_step", "End_to_end_Latency")}
+    log(f"bench StageBench batch 1 ({BENCH_WARMUP} warm-ups, {BENCH_ITERS} iterations), mean ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in means.items())
+        + f"; {summary['Throughput']['mean']:.2f} samples/s; reports {files}")
+    if files != ["baseline_iterations.csv", "baseline_summary.json",
+                 "benchmark_bs_comparison.csv", "benchmark_bs_summary.json"]:
+        raise AssertionError(f"StageBench wrote {files}")
+    out["stage_bench"] = {"mean_ms": means, "files": files}
+
+    cfg = engine.config
+    unified = InferenceEngine(dataclasses.replace(cfg, compile=dataclasses.replace(
+        cfg.compile, unified_decode=True)), params=engine.params, seed=SEED, device="cuda")
+    out["roofline"] = {}
+    for label, eng, batch in [("default", engine, b) for b in ROOFLINE_BATCHES] + [
+            ("unified_decode", unified, 1)]:
+        r = roofline.measure_roofline(eng, batch=batch,
+                                      report_path=str(root / f"roofline_{label}_{batch}.json"))
+        out["roofline"][f"{label} batch {batch}"] = r
+        for st in r["stages"]:
+            log(f"bench roofline {label} batch {batch} {st['stage']:34s} device "
+                f"{st['device_ms']:.3f} ms, {st['gflops']:.2f} GFLOP, {st['gbytes']:.4f} GB, "
+                f"{st['pct_peak_flops']:.2f}% of peak FLOP/s, {st['pct_peak_hbm']:.2f}% of "
+                f"peak HBM")
+            if st["pct_peak_flops"] > 100 or st["pct_peak_hbm"] > 100:
+                raise AssertionError(f"a share of the peak over 100%: {st}")
+        log(f"bench roofline {label} batch {batch}: device total {r['device_total_ms']:.3f} ms, "
+            f"{r['device_caps_per_sec']:.2f} captions/s (device only; peaks {r['peaks']})")
+
+    log("bench driver (batch 8, pipeline depth 2, 3 trials):")
+    rc = driver.main(["1", "3", "8"])
+    if rc != 0:
+        raise AssertionError(f"the driver returned {rc}")
+    out["driver_history"] = json.loads(driver.HISTORY.read_text())[-1]
+
+    load = serving_load.run_load(dirs[0], LOAD_QPS, LOAD_SECONDS, num_frames=NUM_FRAMES)
+    batching_queue.get_queue(MODEL_REGISTRY.get_engine(
+        serving_inference_config(num_frames=NUM_FRAMES))).stop()
+    if load["errors"]:
+        raise AssertionError(f"the serving load had {load['errors']} errors of "
+                             f"{load['requests_sent']}: {load['error_samples']}")
+    lat = load["latency_ms"]
+    log(f"bench serving load {LOAD_QPS:g} QPS for {LOAD_SECONDS:g} s: {load['requests_ok']} of "
+        f"{load['requests_sent']} answered, achieved {load['achieved_qps']:.2f} QPS, p50 "
+        f"{lat['p50']:.1f} ms, p90 {lat['p90']:.1f} ms, p99 {lat['p99']:.1f} ms, max "
+        f"{lat['max']:.1f} ms")
+    out["serving_load"] = load
+
+    gate = accuracy_alignment.check_alignment(image_size=IMAGE_SIZE, num_frames=4, seed=SEED)
+    for leg, res in gate.items():
+        if leg != "all_ok":
+            log(f"bench accuracy {leg}: {json.dumps(res)}")
+    dec = gate[accuracy_alignment.DECODE]
+    log(f"bench accuracy gate all_ok {gate['all_ok']}: {dec['rows']} rows, step rel "
+        f"{dec['step_logits_rel_err']:.3e} (tol {dec['step_rel_tol']:g}), agreement "
+        f"{dec['token_agreement_rate']:.4f} (floor {dec['agreement_floor']:g}), flat "
+        f"{dec['token_agreement_rate_flat_informational']:.4f}, peaked fraction "
+        f"{dec['peak_frac_gap_ge_1nat']:.5f} (floor {dec['peak_frac_floor']:g}), min gap "
+        f"{dec['peak_min_gap_nats']:.3f} nats, mean gap {dec['peak_mean_gap_nats']:.3f}, "
+        f"{dec['widening_rounds']} widening rounds, launches lm_head {dec['lm_head_launches']} "
+        f"beam_attention {dec['beam_attention_launches']}")
+    if not gate["all_ok"]:
+        raise AssertionError(f"the accuracy gate failed: {gate}")
+    out["accuracy"] = gate
+
+    launches = _kernel_counts()
+    log(f"bench: launches over the phase {launches}")
+    _require_launches(launches, selfcheck.DEFAULT_PATH, "the bench phase")
+    out["launches"] = launches
+    return out
 
 
 def _leaves(tree):

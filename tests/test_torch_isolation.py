@@ -1,8 +1,8 @@
 """The port imports nothing of the JAX package and no JAX (nor pydantic or
 fastapi, which the card's machine lacks), and its own copies
 of the reference's JAX-free modules (config, datatypes, tokenizer, presets,
-post-processing, frame loading, the training data loader) behave as the
-originals do."""
+post-processing, frame loading, the training data loader, the benchmark's
+report writers) behave as the originals do."""
 import dataclasses
 import json
 import subprocess
@@ -48,7 +48,10 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         "             'decode.unified', 'server.schemas', 'server.settings',\n"
         "             'server.stdlib_server', 'server.services.batching_queue',\n"
         "             'server.services.inference_service', 'server.services.model_registry',\n"
-        "             'server.services.task_manager', 'cli.serve'):\n"
+        "             'server.services.task_manager', 'cli.serve', 'env', 'memory',\n"
+        "             'bench.report', 'bench.benchmark', 'bench.profile', 'bench.probes',\n"
+        "             'bench.roofline', 'bench.serving_load', 'bench.accuracy_alignment',\n"
+        "             'bench.driver', 'cli.check_env'):\n"
         "    assert p.__name__ + '.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'video_caption_tpu', 'pydantic', 'fastapi', 'uvicorn', 'starlette'))\n"
@@ -56,6 +59,13 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         "assert len(names) > 20, names\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=300)
+
+
+def test_report_copy_is_the_jax_packages_file():
+    """bench/report.py imports nothing of either package: the copy is the
+    original, byte for byte."""
+    assert (REPO / "video_caption_tpu_torch/bench/report.py").read_bytes() == \
+        (REPO / "video_caption_tpu/bench/report.py").read_bytes()
 
 
 def test_config_copy_has_the_same_fields_and_defaults():

@@ -8,6 +8,8 @@ one host call, instead of the host issuing each of the request's kernels.
 
 - :class:`RequestGraph` captures ``fn(x) -> outputs`` into a graph with a
   static input buffer and static outputs, and replays it.
+- :func:`graphed` gives a function as a replay of its graph on CUDA, and as
+  itself on the CPU (the benchmarks time their stages through it).
 - :func:`build_engine` captures the pipeline's stages in the reference's
   rollout order (encoder, projector, decoder) and reports the capture time
   of each.
@@ -120,6 +122,16 @@ class RequestGraph:
         for module, n in self.launches.items():
             module.launches += n
         return self.outputs
+
+
+def graphed(fn: Callable[[torch.Tensor], object], example: torch.Tensor,
+            generators: Sequence[torch.Generator] = ()) -> Callable[[torch.Tensor], object]:
+    """``fn`` for repeated calls on inputs of ``example``'s shape: on CUDA
+    the replay of a :class:`RequestGraph` of ``fn`` captured now (its
+    outputs overwritten by the next call), on the CPU ``fn`` itself."""
+    if example.device.type != "cuda":
+        return fn
+    return RequestGraph.capture(fn, example, generators).replay
 
 
 def build_engine(config=None, stages: Tuple[str, ...] = ("encoder", "projector", "decoder"),

@@ -299,14 +299,18 @@ class InferenceEngine:
                 and not any(dp.early_stop for dp, *_ in group_list))
 
     def run_decode_group(self, prefix: torch.Tensor, dp: DecodeParams, ids: torch.Tensor,
-                         mask: torch.Tensor) -> torch.Tensor:
+                         mask: torch.Tensor,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One policy group (prompt ids and mask [n_g, L] on the device) for
-        every video of prefix [V,P,H]: ids [V*n_g, N], video-major."""
+        every video of prefix [V,P,H]: ids [V*n_g, N], video-major. A
+        sampled group draws from ``generator``, the engine's by default (a
+        measurement passes a throwaway one)."""
         v = prefix.shape[0]
         with torch.inference_mode():
             return generate_prefixed(self.params["decoder"], self.model_cfg.gpt2,
                                      prefix.repeat_interleave(ids.shape[0], dim=0),
-                                     ids.repeat(v, 1), mask.repeat(v, 1), dp, self.generator)
+                                     ids.repeat(v, 1), mask.repeat(v, 1), dp,
+                                     generator or self.generator)
 
     def _make_program(self, fused: bool):
         """(program, group_list): ``program(video)`` takes the uploaded uint8
