@@ -55,29 +55,55 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    reordered beams), against the same steps in f32 on the CPU; the logits
    of 4 steps of the unified layout (9 rows) against the grouped programs'
    (6 beam rows, one K=1 row) on the card;
-7. batches: ``infer_batch`` of 1, 2, 4 and 8 videos on the graph (one graph
+7. int8, early stop, the split cache, full-vocab policies and eval, at
+   full width with the default engine's parameters, each driven with the kernels' counts set to 0 just before it
+   and read just after: (a) an engine with ``compile.quantize_decoder_int8``
+   (its block weights int8 and their scales f32 on the card,
+   ``use_pallas_decode_layer`` off) on its request graph beside its eager
+   twin, as in 4, the logits of 4 beam-3 steps against the same int8
+   weights dequantized in f32 on the CPU (relative error below 3e-2), its
+   p50, replay, device ms and peak memory beside the bf16 engine's and its
+   beam tokens' agreement with the bf16 engine (information: int8 captions
+   may differ); (b) an engine with ``compile.early_stop_decode``, which
+   serves eagerly: its results equal a full-length eager engine's, and the
+   beam group and a greedy group (its EOS a token the greedy decode reaches)
+   give the ids of their full-length loops, with the steps each ran; (c) an
+   engine with ``compile.sample_split_cache`` (group by group) on its graph
+   beside its eager twin, and the ``natural`` group's ids and device ms on
+   the split and the contiguous cache; (d) the full-vocab chain:
+   ``precise`` with ``repetition_penalty=0.9`` and ``natural`` with
+   ``top_k=0`` through ``generate_once`` and ``run_decode_group`` beside
+   their candidate-path policies, one unified decode mixing them with
+   ``precise`` captured into a CUDA graph (its beam groups' ids equal the
+   same program run op by op), and the processed scores of 4 beam-3 and 4
+   K=1 steps against the f32 CPU path; (e) ``eval/``:
+   ``ablate_decode.ablate`` over 4 annotated videos on beams 1, 3, 5 x T
+   0.8, 1.0 x top_p 0.9 x n-gram 3 and ``eval_compare.compare`` between the
+   bf16 and int8 engines, which must launch ``beam_attention`` at K=5 (its
+   wrapper's count by beam count);
+8. batches: ``infer_batch`` of 1, 2, 4 and 8 videos on the graph (one graph
    per batch size, captured on first use) beside an eager twin: ms a batch,
    captions/s, capture s, and the ids of one more batch identical;
-8. mapper trainer: ``cli/train_caption_mapper.main`` on a synthetic
+9. mapper trainer: ``cli/train_caption_mapper.main`` on a synthetic
    annotations file over the same JPEG directories, full-width ViT-B/16 +
    GPT-2 with seeded random weights, bf16 compute, 4 videos x 8 frames, 5
    steps (each synchronised and timed), then a validation pass and a
    best-val checkpoint; the losses must be finite, the mapper must move and
    every other weight stay bit-equal (their rate is 0), and the step must
    launch encoder_attention (frozen forward) and prefix_projector;
-9. joint step: ``training/loop.run_training`` with the stage-1 alignment
+10. joint step: ``training/loop.run_training`` with the stage-1 alignment
    loss of ``cli/train_full.py --model vit`` and ``adamw(1e-4)``, the ViT
    with ``pool="gap"``, f32 and remat, 4 videos x 8 frames, 5 steps; the step
    must launch fused_pool once and encoder_attention twice per layer
    (forward and remat recompute); then the loss and global gradient norm of
    one step at 1 video x 2 frames on the card against the same step in f32
    on the CPU (plain versions);
-10. server: the port's stdlib HTTP server on 127.0.0.1:0, the registry
+11. server: the port's stdlib HTTP server on 127.0.0.1:0, the registry
    building the serving-preset engine (absent checkpoint: seeded random
    weights), 16 concurrent clients POST /infer, twice: every answer 200 and
    well formed, at least one batch of more than one formed by the queue and
    no request retried alone; batch sizes, client p50/p99, captions/s;
-11. bench: the port's measurement stack (``bench/``) over the default
+12. bench: the port's measurement stack (``bench/``) over the default
    engine's parameters: ``StageBench`` at batch 1 (2 warm-ups, 5
    iterations, the four report files in a temporary directory; stage
    means); ``measure_roofline`` of the default engine at batch 1 and 8 and
@@ -89,7 +115,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    72 videos x 4 beams on the card against f32 on the CPU, ``all_ok``
    required). The kernel counts are read around the phase: the default
    path's four kernels must launch;
-12. the kernel table as one JSON line (launches of each kernel's path: the
+13. the kernel table as one JSON line (launches of each kernel's path: the
    default engine's requests, each fused-decode engine's, the joint steps'
    for fused_pool), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -141,6 +167,11 @@ TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 4, 8, 5
 # f32 on the card (kernels) vs f32 on the CPU (plain versions): one step's
 # loss and global gradient norm through 12 ViT layers and back
 TRAIN_REL_TOL = 1e-3
+INT8_REL_TOL = 3e-2    # int8 weights in bf16 products on the card vs the same weights in f32
+EVAL_VIDEOS = 4
+EVAL_GRID = {"num_beams": (1, 3, 5), "temperature": (0.8, 1.0), "top_p": (0.9,),
+             "no_repeat_ngram_size": (3,)}
+FULL_VOCAB = {"precise": {"repetition_penalty": 0.9}, "natural": {"top_k": 0}}
 CAPTIONS = ("a man is riding a horse", "a woman is slicing a tomato",
             "two dogs are playing in the snow", "a child is playing the guitar",
             "a cat is sleeping on a sofa", "a car is driving down the road",
@@ -366,10 +397,15 @@ def main() -> int:
                 raise AssertionError(f"the {name} {kind} steps disagree with the f32 plain path")
         report["reference"]["unified_vs_grouped"] = _unified_vs_grouped(engine, pre_gpu, v)
 
-        # ---- infer_batch at every bucket, graph beside eager
+        # ---- 7. int8, early stop, the split cache, full-vocab policies and eval/
+        report["decode_configs"] = _decode_configs_phase(
+            engine, core_cfg, all_dirs, report["engine"]["graph"], emb_gpu, emb_cpu,
+            Path(tmp))
+
+        # ---- 8. infer_batch at every bucket, graph beside eager
         report["batches"] = _batch_phase(engine, all_dirs)
 
-        # ---- 7. and 8. the two trainers
+        # ---- 9. and 10. the two trainers
         ann = Path(tmp) / "annotations.json"
         ann.write_text(json.dumps([
             {"video_id": f"video{v}", "frames_dir": d,
@@ -379,13 +415,13 @@ def main() -> int:
         report["joint_step"] = _joint_step_phase(Path(tmp), ann)
         launches["fused_pool"] = report["joint_step"]["launches"]["fused_pool"]
 
-        # ---- the HTTP server with its batch queue
+        # ---- 11. the HTTP server with its batch queue
         report["server"] = _server_phase(all_dirs, ckpt)
 
-        # ---- the measurement stack
+        # ---- 12. the measurement stack
         report["bench"] = _bench_phase(engine, all_dirs, Path(tmp))
 
-    # ---- 9. summary: launches of each kernel's path (the default engine's
+    # ---- 13. summary: launches of each kernel's path (the default engine's
     # requests; the fused-decode kernels', their engines' requests;
     # fused_pool's, the joint steps'); times and bound of the first check of
     # each kernel, its single-request (fused_pool: joint-step) shape
@@ -448,6 +484,7 @@ def _graph_and_eager(label, engine, dirs, count):
         out[mode] = {"warmup_s": warmup_s, "latencies_s": lat, "p50_s": statistics.median(lat),
                      "captions_per_s": 1.0 / statistics.mean(lat),
                      "peak_added_bytes": torch.cuda.max_memory_allocated() - before,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
                      "launches": counts, "results": res}
     _, groups = engine._fused_infer_program()
     unified = engine._unified_eligible(groups, fused_program=True)
@@ -566,7 +603,7 @@ def _losses(events: Path):
 
 
 def _mapper_trainer_phase(root: Path, ann: Path) -> dict:
-    """Phase 7: the mapper trainer through its CLI."""
+    """Phase 9: the mapper trainer through its CLI."""
     from video_caption_tpu_torch.cli import train_caption_mapper
     from video_caption_tpu_torch.config import default_inference_config
     from video_caption_tpu_torch.engine import load_params, model_config_from_inference
@@ -625,7 +662,7 @@ def _mapper_trainer_phase(root: Path, ann: Path) -> dict:
 
 
 def _joint_step_phase(root: Path, ann: Path) -> dict:
-    """Phase 8: the stage-1 joint step with pool="gap", and one step against
+    """Phase 10: the stage-1 joint step with pool="gap", and one step against
     the CPU."""
     from video_caption_tpu_torch.cli.train_full import align_loss
     from video_caption_tpu_torch.data import build_dataloader
@@ -816,6 +853,363 @@ def _unified_vs_grouped(engine, prefix, vocab):
     return {"beam_rows_rel_err": beam_err, "sampled_row_rel_err": sampled_err}
 
 
+def _decode_configs_phase(engine, core_cfg, dirs, default_graph, emb_gpu, emb_cpu,
+                          root: Path) -> dict:
+    """Phase 7: int8 weights, early stop, the split cache, the full-vocab
+    chain and eval/, each driven with the counts set to 0 just before it
+    and read just after."""
+    from video_caption_tpu_torch.engine import InferenceEngine
+
+    out = {}
+    cfg = dataclasses.replace(core_cfg, compile=dataclasses.replace(
+        core_cfg.compile, quantize_decoder_int8=True))
+    int8 = InferenceEngine(cfg, params=engine.params, seed=SEED, device="cuda")
+    out["int8"] = _int8_config(engine, int8, dirs[:3], default_graph, emb_gpu, emb_cpu)
+    out["early_stop"] = _early_stop_config(engine, core_cfg, dirs[:3])
+    out["split_cache"] = _split_cache_config(engine, core_cfg, dirs[:3])
+    out["full_vocab"] = _full_vocab_config(engine, dirs[0], emb_gpu, emb_cpu)
+    out["eval"] = _eval_config(engine, int8, dirs[:EVAL_VIDEOS], root)
+    return out
+
+
+def _block_weight_bytes(blocks) -> int:
+    from video_caption_tpu_torch.models.quantize import QUANTIZED_BLOCK_WEIGHTS
+
+    return sum(v.nbytes for k, v in blocks.items()
+               if k in QUANTIZED_BLOCK_WEIGHTS or k[:-2] in QUANTIZED_BLOCK_WEIGHTS)
+
+
+def _int8_config(engine, int8, dirs, default_graph, emb_gpu, emb_cpu) -> dict:
+    """(a) The int8 engine: its weights on the card, its request graph beside
+    its eager twin, 4 beam-3 steps against the f32 CPU path, its numbers
+    beside the bf16 engine's and its beam tokens' agreement with them."""
+    from video_caption_tpu_torch.models.quantize import QUANTIZED_BLOCK_WEIGHTS
+    from video_caption_tpu_torch.ops import selfcheck
+
+    blocks = int8.params["decoder"]["blocks"]
+    for name in QUANTIZED_BLOCK_WEIGHTS:
+        q, scale = blocks.get(name + "_q"), blocks.get(name + "_s")
+        if name in blocks or q is None or q.dtype != torch.int8 \
+                or q.device.type != int8.device.type or scale.dtype != torch.float32 \
+                or scale.device.type != int8.device.type:
+            raise AssertionError(f"the int8 engine's {name} is not int8 with f32 scales on the "
+                                 f"card")
+    if int8.model_cfg.gpt2.use_pallas_decode_layer:
+        raise AssertionError("int8 left use_pallas_decode_layer on")
+    wbytes = (_block_weight_bytes(blocks), _block_weight_bytes(engine.params["decoder"]["blocks"]))
+    pair = _graph_and_eager("quantize_decoder_int8", int8, dirs, FUSED_REQUESTS)
+    _require_launches(pair["graph"]["launches"], selfcheck.DEFAULT_PATH, "the int8 path")
+    _require_per_request(pair["graph"]["launches"], UNIFIED_LAUNCHES, FUSED_REQUESTS,
+                         "the int8 request")
+    v = engine.model_cfg.gpt2.vocab_size
+    with torch.inference_mode():
+        got = _beam_decode_logits(int8.params["decoder"], int8.model_cfg.gpt2, emb_gpu)
+        want = _beam_decode_logits(_f32_cpu(int8.params["decoder"]),
+                                   _f32(int8.model_cfg).gpt2, emb_cpu)
+    err = rel_err(got[..., :v], want[..., :v])
+    finite = bool(torch.isfinite(got[..., :v]).all())
+    video = engine.load_video(dirs[2])
+    same = total = 0
+    for (dp, *_), a, b in zip(engine._decode_groups(), engine.request_ids(video),
+                              int8.request_ids(video)):
+        if dp.num_beams > 1:
+            same, total = same + int((a == b).sum()), total + a.size
+    g = pair["graph"]
+    log(f"int8: block weights {wbytes[0] / 2**20:.1f} MiB int8 + f32 scales on the card "
+        f"(bf16 {wbytes[1] / 2**20:.1f} MiB), use_pallas_decode_layer off; graph p50 "
+        f"{g['p50_s'] * 1000:.1f} ms (bf16 {default_graph['p50_s'] * 1000:.1f}), replay "
+        f"{g['replay_ms']:.2f} ms (bf16 {default_graph['replay_ms']:.2f}), device "
+        f"{g['replay_device_ms']:.2f} ms (bf16 {default_graph['replay_device_ms']:.2f}), "
+        f"{g['replay_kernels']} kernels (bf16 {default_graph['replay_kernels']}), "
+        f"max_memory_allocated {g['peak_bytes'] / 2**20:.0f} MiB (bf16 "
+        f"{default_graph['peak_bytes'] / 2**20:.0f}), added by the requests "
+        f"{g['peak_added_bytes'] / 2**20:.0f} MiB (bf16 "
+        f"{default_graph['peak_added_bytes'] / 2**20:.0f}); {DECODE_STEPS} beam-{BEAMS} steps' "
+        f"logits vs the same int8 weights in f32 on the CPU rel err {err:.3e} (bound "
+        f"{INT8_REL_TOL:g}), finite {finite}; beam tokens equal to the bf16 engine's "
+        f"{same}/{total} (information)")
+    if not (finite and err < INT8_REL_TOL):
+        raise AssertionError("the int8 beam steps disagree with the f32 plain path")
+    return {**pair, "block_weight_bytes": wbytes[0], "bf16_block_weight_bytes": wbytes[1],
+            "beam_steps_rel_err": err, "beam_tokens_equal_bf16": [same, total]}
+
+
+def _steps_run(engine, prefix, dp, ids, mask):
+    """(ids, decode steps run) of one group: lm_head launches once for the
+    prefill and once a step."""
+    from video_caption_tpu_torch.ops import lm_head
+
+    before = lm_head.launches
+    out = engine.run_decode_group(prefix, dp, ids, mask).cpu()
+    return out, lm_head.launches - before - 1
+
+
+def _early_stop_config(engine, core_cfg, dirs) -> dict:
+    """(b) Early stop: requests served eagerly with the results of a
+    full-length eager engine; the beam group and a greedy group with the
+    ids of their full-length loops and the steps each ran."""
+    from video_caption_tpu_torch.engine import InferenceEngine
+    from video_caption_tpu_torch.ops import selfcheck
+
+    engines = {}
+    for name, kw in (("early_stop", {"early_stop_decode": True}),
+                     ("full", {"aot_request_program": False})):
+        engines[name] = InferenceEngine(dataclasses.replace(core_cfg, compile=dataclasses.replace(
+            core_cfg.compile, **kw)), params=engine.params, seed=SEED, device="cuda")
+    es = engines["early_stop"]
+    if es._serves_on_program(es.load_video(dirs[0])):
+        raise AssertionError("an early-stop request took the captured graph")
+    runs = {}
+    for name, eng in engines.items():
+        eng.warmup()
+        runs[name] = _timed_requests(eng, dirs, FUSED_REQUESTS)
+    _require_launches(runs["early_stop"][2], selfcheck.DEFAULT_PATH, "the early-stop path")
+    if runs["early_stop"][1] != runs["full"][1]:
+        raise AssertionError(f"early stop changed the results: {runs['early_stop'][1]} vs "
+                             f"{runs['full'][1]}")
+    prefix = es.compute_prefix(es.load_video(dirs[0]))
+    beam_dp, _, ids, mask = next(g for g in es._decode_groups() if g[0].num_beams > 1)
+    greedy = dataclasses.replace(beam_dp, num_beams=1, early_stop=False)
+    # a greedy group whose EOS is a token its first row reaches after
+    # min_new_tokens, so the loop can end early
+    ids1, mask1 = ids[:1], mask[:1]
+    eos = int(es.run_decode_group(prefix, greedy, ids1, mask1)[0, greedy.min_new_tokens])
+    steps = {}
+    for label, dp, gi, gm in (("beam", beam_dp, ids, mask),
+                              ("greedy", dataclasses.replace(greedy, eos_id=eos), ids1, mask1)):
+        full, n_full = _steps_run(es, prefix, dataclasses.replace(dp, early_stop=False), gi, gm)
+        stop, n_stop = _steps_run(es, prefix, dataclasses.replace(dp, early_stop=True), gi, gm)
+        if not torch.equal(full, stop):
+            raise AssertionError(f"early stop changed the {label} group's ids")
+        steps[label] = {"steps": n_stop, "full_steps": n_full, "eos_id": dp.eos_id}
+    p50 = {name: statistics.median(r[0]) * 1000 for name, r in runs.items()}
+    log(f"early stop: requests eager, results equal to the full-length eager engine's over "
+        f"{FUSED_REQUESTS} requests; p50 {p50['early_stop']:.1f} ms (full length "
+        f"{p50['full']:.1f}); beam-{beam_dp.num_beams} group ids equal, "
+        f"{steps['beam']['steps']} of {steps['beam']['full_steps']} decode steps run; greedy "
+        f"group (EOS = token {eos}) ids equal, {steps['greedy']['steps']} of "
+        f"{steps['greedy']['full_steps']} steps run")
+    return {"p50_ms": p50, "latencies_s": {n: r[0] for n, r in runs.items()},
+            "launches": runs["early_stop"][2], "steps": steps}
+
+
+def _group_ms(engine, prefix, dp, ids, mask, runs=3):
+    """(median wall ms of ``runs`` synchronised calls, one call's profile)
+    of one group decoded eagerly, each from a generator seeded alike."""
+    from video_caption_tpu_torch.cli.profile_request import profile_call
+
+    def call():
+        return engine.run_decode_group(prefix, dp, ids, mask,
+                                       generator=torch.Generator("cuda").manual_seed(SEED))
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+    return statistics.median(times), profile_call(call)
+
+
+def _split_cache_config(engine, core_cfg, dirs) -> dict:
+    """(c) The split cache: an engine decoding group by group on its graph
+    beside its eager twin; the natural group's ids and device ms on the
+    split and the contiguous cache, one seed."""
+    from video_caption_tpu_torch.engine import InferenceEngine
+    from video_caption_tpu_torch.ops import selfcheck
+
+    split = InferenceEngine(dataclasses.replace(core_cfg, compile=dataclasses.replace(
+        core_cfg.compile, sample_split_cache=True, **{GROUPED: False})), params=engine.params,
+        seed=SEED, device="cuda")
+    if not split.model_cfg.gpt2.sample_split_cache:
+        raise AssertionError("the engine dropped sample_split_cache")
+    pair = _graph_and_eager("sample_split_cache", split, dirs, FUSED_REQUESTS)
+    _require_launches(pair["graph"]["launches"], selfcheck.DEFAULT_PATH, "the split-cache path")
+    prefix = engine.compute_prefix(engine.load_video(dirs[0]))
+    dp, _, ids, mask = next(g for g in engine._decode_groups() if g[0].do_sample)
+    res = {}
+    for name, eng in (("split", split), ("contiguous", engine)):
+        with torch.inference_mode():
+            tokens = eng.run_decode_group(prefix, dp, ids, mask,
+                                          generator=torch.Generator("cuda").manual_seed(SEED))
+        ms, prof = _group_ms(eng, prefix, dp, ids, mask)
+        res[name] = {"ids": tokens.cpu(), "ms": ms, "device_ms": prof["device_ms"],
+                     "kernels": prof["kernels"]}
+    agree = float((res["split"]["ids"] == res["contiguous"]["ids"]).float().mean())
+    log(f"split cache: graph ids equal its eager twin's; natural group ids agreement with the "
+        f"contiguous cache {agree:.1%}; device {res['split']['device_ms']:.2f} ms in "
+        f"{res['split']['kernels']} kernels (contiguous {res['contiguous']['device_ms']:.2f} ms "
+        f"in {res['contiguous']['kernels']}), eager {res['split']['ms']:.1f} ms (contiguous "
+        f"{res['contiguous']['ms']:.1f})")
+    for r in res.values():
+        r["ids"] = r["ids"].tolist()
+    return {**pair, "natural_group": res, "ids_agreement": agree}
+
+
+def _processed(logits, dp, beams: bool):
+    """The full-vocab chain over DECODE_STEPS steps' logits [S, R, Vp]
+    (log-softmax first for beams), the steps' fed tokens as the generated
+    buffer."""
+    from video_caption_tpu_torch.decode import generate as gen
+
+    steps, rows, _ = logits.shape
+    fed = torch.tensor((32, 97, 32, 109)[:steps], device=logits.device)
+    generated = (fed[None] + torch.arange(rows, device=logits.device)[:, None] % BEAMS
+                 if beams else fed[None].expand(rows, steps)).long()
+    out = []
+    for t in range(steps):
+        x = torch.log_softmax(logits[t].float(), dim=-1) if beams else logits[t].float()
+        out.append(gen._process_logits(x, generated, t + 1, dp))
+    return torch.stack(out)
+
+
+def _finite_rel_err(got, want) -> float:
+    """rel_err over the finite scores; the -inf (banned, padded) ones must agree."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+        raise AssertionError("the processed scores ban other tokens on the card")
+    keep = torch.isfinite(want)
+    return rel_err(torch.where(keep, got, 0.0), torch.where(keep, want, 0.0))
+
+
+def _full_vocab_config(engine, frames_dir, emb_gpu, emb_cpu) -> dict:
+    """(d) The full-vocab chain: precise with repetition_penalty 0.9 and
+    natural with top_k 0 through generate_once and run_decode_group beside
+    their candidate-path policies; one unified decode mixing them with
+    precise, captured into a graph; 4 steps' processed scores of the beam
+    and K=1 steps against the f32 CPU path."""
+    from video_caption_tpu_torch.aot import RequestGraph
+    from video_caption_tpu_torch.decode import unified
+    from video_caption_tpu_torch.decode.presets import preset_to_kwargs
+    from video_caption_tpu_torch.engine import _pack
+    from video_caption_tpu_torch.ops import selfcheck
+
+    _reset_kernel_counts()
+    prefix = engine.compute_prefix(engine.load_video(frames_dir))
+    groups = {("natural" if g[0].do_sample else "precise"): g for g in engine._decode_groups()}
+    res = {}
+    for name, over in FULL_VOCAB.items():
+        dp, _, ids, mask = groups[name]
+        fv = dataclasses.replace(dp, **over)
+        row = {}
+        for path, policy in (("full_vocab", fv), ("candidate", dp)):
+            t0 = time.perf_counter()
+            text = engine.generate_once(prefix, NATURAL[1] if name == "natural" else "",
+                                        **{**preset_to_kwargs(name),
+                                           **(over if policy is fv else {})})
+            torch.cuda.synchronize()
+            once_ms = (time.perf_counter() - t0) * 1000
+            ms, prof = _group_ms(engine, prefix, policy, ids, mask)
+            row[path] = {"generate_once_ms": once_ms, "text": text, "group_ms": ms,
+                         "group_device_ms": prof["device_ms"], "group_kernels": prof["kernels"]}
+        res[name] = {"policy": over, **row}
+        log(f"full vocab {name} {over}: group {row['full_vocab']['group_ms']:.1f} ms eager, "
+            f"{row['full_vocab']['group_device_ms']:.2f} ms device in "
+            f"{row['full_vocab']['group_kernels']} kernels (candidate path "
+            f"{row['candidate']['group_ms']:.1f} ms, {row['candidate']['group_device_ms']:.2f} ms "
+            f"in {row['candidate']['group_kernels']}); generate_once "
+            f"{row['full_vocab']['generate_once_ms']:.1f} ms (candidate "
+            f"{row['candidate']['generate_once_ms']:.1f}): {row['full_vocab']['text']!r}")
+
+    # one unified decode: both full-vocab policies and the candidate-path precise
+    prompts, dps = [], []
+    for name, over in list(FULL_VOCAB.items()) + [("precise", {})]:
+        dp, _, ids, mask = groups[name]
+        prompts.append((ids, mask))
+        dps.append(dataclasses.replace(dp, **over))
+    params, mc = engine.params, engine.model_cfg
+
+    def program(gen):
+        def run(p):
+            with torch.inference_mode():
+                return _pack(unified.generate_unified(params["decoder"], mc.gpt2, p, prompts,
+                                                      dps, gen))
+        return run
+
+    graph_gen = torch.Generator("cuda").manual_seed(SEED)
+    graph = RequestGraph.capture(program(graph_gen), prefix, (graph_gen,))
+    replayed = graph.replay(prefix).clone()
+    eager = program(torch.Generator("cuda").manual_seed(SEED))(prefix)
+    sizes = [len(ids) * dp.max_new_tokens for (ids, _), dp in zip(prompts, dps)]
+    parts = list(zip(dps, replayed.split(sizes), eager.split(sizes)))
+    if not all(torch.equal(a, b) for dp, a, b in parts if not dp.do_sample):
+        raise AssertionError("the captured unified decode's beam ids differ from its eager run")
+    sampled_same = [bool(torch.equal(a, b)) for dp, a, b in parts if dp.do_sample]
+    launches = _kernel_counts()
+    _require_launches(launches, ("lm_head", "beam_attention"), "the full-vocab policies")
+
+    v = mc.gpt2.vocab_size
+    cpu_dec = _f32_cpu(params["decoder"])
+    errs = {}
+    with torch.inference_mode():
+        for label, run, name in (("beam", _beam_decode_logits, "precise"),
+                                 ("greedy", _decode_logits, "precise")):
+            dp = dataclasses.replace(groups[name][0], **FULL_VOCAB[name])
+            if label == "greedy":
+                dp = dataclasses.replace(dp, num_beams=1)
+            beams = label == "beam"
+            got = _processed(run(params["decoder"], mc.gpt2, emb_gpu), dp, beams)
+            want = _processed(run(cpu_dec, _f32(mc).gpt2, emb_cpu), dp, beams)
+            errs[label] = _finite_rel_err(got[..., :v], want[..., :v])
+    log(f"full vocab: unified decode of repetition_penalty {[d.repetition_penalty for d in dps]}"
+        f", top_k {[d.top_k for d in dps]} captured (capture {graph.capture_s:.2f} s), "
+        f"beam ids equal to its eager run, sampled ids equal {sampled_same}; {DECODE_STEPS} "
+        f"steps' processed scores vs f32 on the CPU: beam-{BEAMS} (log-softmax, rep. 0.9) rel "
+        f"err {errs['beam']:.3e}, K=1 {errs['greedy']:.3e} (bound {REL_TOL:g}); launches "
+        f"{launches}")
+    if not all(e < REL_TOL for e in errs.values()):
+        raise AssertionError("the full-vocab chain disagrees with the f32 plain path")
+    return {"groups": res, "unified_capture_s": graph.capture_s,
+            "unified_sampled_ids_equal": sampled_same, "processed_rel_err": errs,
+            "launches": launches}
+
+
+def _eval_config(engine, int8, dirs, root: Path) -> dict:
+    """(e) eval/: the ablation grid over the annotated videos with the bf16
+    engine and eval_compare between the bf16 and int8 engines; the
+    beam-attention wrapper's count by beam count must show K=5."""
+    from video_caption_tpu_torch.eval import ablate_decode, eval_compare
+    from video_caption_tpu_torch.ops import beam_attention, selfcheck
+
+    ann = root / "eval_annotations.json"
+    ann.write_text(json.dumps([
+        {"video_id": f"video{v}", "frames_dir": d,
+         "captions": [CAPTIONS[(v + i) % len(CAPTIONS)] for i in range(3)]}
+        for v, d in enumerate(dirs)]))
+    _reset_kernel_counts()
+    before = dict(beam_attention.launches_by_beams)
+    t0 = time.perf_counter()
+    rows = ablate_decode.ablate(str(ann), str(root / "ablate.csv"), limit=len(dirs),
+                                num_frames=NUM_FRAMES, grid=EVAL_GRID, image_size=IMAGE_SIZE,
+                                engine=engine)
+    ablate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = eval_compare.compare(str(ann), "", "", str(root / "eval_compare"), limit=len(dirs),
+                                   num_frames=NUM_FRAMES, image_size=IMAGE_SIZE,
+                                   engines=(engine, int8))
+    compare_s = time.perf_counter() - t0
+    launches = _kernel_counts()
+    by_beams = {k: n - before.get(k, 0) for k, n in beam_attention.launches_by_beams.items()
+                if n != before.get(k, 0)}
+    _require_launches(launches, selfcheck.DEFAULT_PATH, "eval/")
+    with (root / "eval_compare" / "results.csv").open() as fh:
+        results = list(csv.reader(fh))
+    for row in rows:
+        log(f"eval ablate {row}")
+    for row in results:
+        log(f"eval compare {row}")
+    log(f"eval: ablate {len(rows)} grid points x {len(dirs)} videos in {ablate_s:.1f} s, compare "
+        f"bf16 vs int8 in {compare_s:.1f} s, summary {json.dumps(summary)}; beam_attention "
+        f"launches by beam count {by_beams}; launches {launches} (random weights: the BLEU "
+        f"means nothing)")
+    if not by_beams.get(5) or len(results) != len(dirs) + 1:
+        raise AssertionError(f"eval did not run beam_attention at K=5 over every video: "
+                             f"{by_beams}, {results}")
+    return {"ablate": rows, "compare": summary, "results_csv": results, "ablate_s": ablate_s,
+            "compare_s": compare_s, "beam_attention_by_beams": by_beams, "launches": launches}
+
+
 def _batch_phase(engine, dirs):
     """infer_batch at every bucket of the serving queue on a graph engine and
     its eager twin (the default configuration, the same parameters and
@@ -954,7 +1348,7 @@ def _server_phase(dirs, ckpt):
 
 
 def _bench_phase(engine, dirs, root: Path) -> dict:
-    """Phase 11: the measurement stack at full width (see the module
+    """Phase 12: the measurement stack at full width (see the module
     docstring); the kernel counts set to 0 before it and read after."""
     import os
 
@@ -1054,7 +1448,9 @@ def _leaves(tree):
 
 
 def _f32_cpu(tree):
-    return {k: _f32_cpu(v) if isinstance(v, dict) else v.float().cpu() for k, v in tree.items()}
+    """Floating leaves in f32 on the CPU; integer leaves (int8 weights) as they are."""
+    return {k: _f32_cpu(v) if isinstance(v, dict)
+            else (v.float() if v.is_floating_point() else v).cpu() for k, v in tree.items()}
 
 
 def _f32(model_cfg):

@@ -153,12 +153,23 @@ def test_stable_top_k_orders_ties_like_lax():
 
 
 def test_unported_policy_raises():
+    """The policy this test once saw refused (repetition_penalty 0.9, which
+    raises seen scores and breaks the candidate bound) now takes the
+    full-vocab chain and selects the tokens the JAX package selects."""
     logits, wmax, generated = _stats_case()
-    dp = gen.DecodeParams(num_beams=1, repetition_penalty=0.9)
-    with pytest.raises(NotImplementedError):
-        gen.sample_select(torch.from_numpy(logits), torch.from_numpy(generated.astype(np.int64)),
-                          torch.zeros(3, dtype=torch.bool), 0, dp, None,
-                          wmax=torch.from_numpy(wmax))
+    kw = dict(num_beams=1, repetition_penalty=0.9, eos_id=999)
+    finished = np.array([False, True, False])
+    for t in (0, 5):
+        jtok, jgen_ids, jfin, _ = jgen.sample_select(
+            jnp.asarray(logits), jnp.asarray(generated), jnp.asarray(finished), jnp.int32(t),
+            jgen.DecodeParams(**kw), jax.random.PRNGKey(0), wmax=jnp.asarray(wmax))
+        tok, gen_ids, fin = gen.sample_select(
+            torch.from_numpy(logits), torch.from_numpy(generated.astype(np.int64)),
+            torch.from_numpy(finished), t, gen.DecodeParams(**kw), None,
+            wmax=torch.from_numpy(wmax))
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+        np.testing.assert_array_equal(gen_ids.numpy(), np.asarray(jgen_ids))
+        np.testing.assert_array_equal(fin.numpy(), np.asarray(jfin))
 
 
 def test_decode_params_rule_matches_jax():

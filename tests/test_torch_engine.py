@@ -103,15 +103,39 @@ def test_sampled_preset_is_seeded(tiny_cfg, tiny_params, frames_dirs):
 
 
 def test_engine_rejects_unported_options(tiny_cfg, tiny_params):
+    """Multi-device inference is still not ported and raises (int8, which
+    this test once saw refused, runs: test_int8_engine_matches_jax_engine)."""
     import dataclasses
 
     base = default_inference_config(ckpt="missing.pt", num_frames=2, image_size=32)
-    int8 = dataclasses.replace(base, compile=dataclasses.replace(
-        base.compile, quantize_decoder_int8=True))
     mesh = dataclasses.replace(base, mesh=dataclasses.replace(base.mesh, data=2))
-    for cfg in (int8, mesh):
-        with pytest.raises(NotImplementedError):
-            InferenceEngine(cfg, model_cfg=port_cfg(tiny_cfg), device="cpu")
+    with pytest.raises(NotImplementedError):
+        InferenceEngine(mesh, model_cfg=port_cfg(tiny_cfg), device="cpu")
+
+
+def test_int8_engine_matches_jax_engine(tiny_cfg, tiny_params, frames_dirs):
+    """``compile.quantize_decoder_int8``: both engines quantize the decoder
+    blocks at construction; beam presets give the same results."""
+    import dataclasses
+
+    cfg = default_inference_config(ckpt="missing.pt", num_frames=2, image_size=32,
+                                   preset1="precise", preset2="detailed", preset3="precise",
+                                   prompt3="Another prompt:")
+    cfg = dataclasses.replace(cfg, compile=dataclasses.replace(cfg.compile,
+                                                               quantize_decoder_int8=True))
+    jax_engine = JaxEngine(cfg, params=tiny_params, model_cfg=tiny_cfg)
+    pcfg = port_cfg(tiny_cfg)
+    port = InferenceEngine(cfg, params=params_from_jax_numpy(
+        jax.tree.map(np.asarray, tiny_params), pcfg, "cpu"), model_cfg=pcfg, device="cpu")
+    jax_engine.tokenizer = port.tokenizer = WordTok()
+    blocks = port.params["decoder"]["blocks"]
+    assert blocks["attn_w_q"].dtype == torch.int8 and blocks["attn_w_s"].dtype == torch.float32
+    np.testing.assert_array_equal(blocks["out_w_q"].numpy(),
+                                  np.asarray(jax_engine.params["decoder"]["blocks"]["out_w_q"]))
+    for d in frames_dirs:
+        got, want = port.infer(d).to_api_dict(), jax_engine.infer(d).to_api_dict()
+        assert got == want
+        assert got["S1"] != "Someone is in the scene."
 
 
 def test_cuda_engine_without_gpu_raises(tiny_cfg):

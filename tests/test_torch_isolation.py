@@ -1,10 +1,12 @@
 """The port imports nothing of the JAX package and no JAX (nor pydantic or
-fastapi, which the card's machine lacks), and its own copies
+fastapi, which the card's machine lacks, nor sacrebleu or NLTK, which it
+lacks too), and its own copies
 of the reference's JAX-free modules (config, datatypes, tokenizer, presets,
 post-processing, frame loading, the training data loader, the benchmark's
-report writers) behave as the originals do."""
+report writers, BLEU scoring) behave as the originals do."""
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -51,10 +53,12 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         "             'server.services.task_manager', 'cli.serve', 'env', 'memory',\n"
         "             'bench.report', 'bench.benchmark', 'bench.profile', 'bench.probes',\n"
         "             'bench.roofline', 'bench.serving_load', 'bench.accuracy_alignment',\n"
-        "             'bench.driver', 'cli.check_env'):\n"
+        "             'bench.driver', 'cli.check_env', 'models.quantize', 'eval.bleu',\n"
+        "             'eval.eval_compare', 'eval.ablate_decode'):\n"
         "    assert p.__name__ + '.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-        "'video_caption_tpu', 'pydantic', 'fastapi', 'uvicorn', 'starlette'))\n"
+        "'video_caption_tpu', 'pydantic', 'fastapi', 'uvicorn', 'starlette', 'sacrebleu', "
+        "'nltk'))\n"
         "assert not bad, bad\n"
         "assert len(names) > 20, names\n"
     )
@@ -66,6 +70,26 @@ def test_report_copy_is_the_jax_packages_file():
     original, byte for byte."""
     assert (REPO / "video_caption_tpu_torch/bench/report.py").read_bytes() == \
         (REPO / "video_caption_tpu/bench/report.py").read_bytes()
+
+
+def test_bleu_copy_scores_as_the_jax_packages_module():
+    """eval/bleu.py computes what the JAX package's module computes through
+    sacrebleu and NLTK (which the card's machine lacks): the same public
+    functions, the same scores on fixed strings (tests/test_torch_eval.py
+    holds more cases), and no import of either library."""
+    from video_caption_tpu.eval import bleu as jbleu
+    from video_caption_tpu_torch.eval import bleu
+
+    public = {n for n in dir(jbleu) if not n.startswith("_") and callable(getattr(jbleu, n))}
+    assert public - {"annotations"} <= set(dir(bleu))
+    hyps = ["a man is riding a horse.", "two dogs play in the snow", ""]
+    refs = [["a man rides a horse", "a man is riding a horse"], ["dogs play in snow"],
+            ["a child plays the guitar"]]
+    for fn in ("corpus_bleu", "nltk_bleu4"):
+        assert getattr(bleu, fn)(hyps, refs) == getattr(jbleu, fn)(hyps, refs)
+    assert bleu.sentence_bleu1(hyps[0], refs[0]) == jbleu.sentence_bleu1(hyps[0], refs[0])
+    source = (REPO / "video_caption_tpu_torch/eval/bleu.py").read_text()
+    assert not re.search(r"^\s*(import|from) (sacrebleu|nltk)", source, re.M)
 
 
 def test_config_copy_has_the_same_fields_and_defaults():

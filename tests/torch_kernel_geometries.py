@@ -13,10 +13,12 @@ PROJECTOR_GEOMETRIES = [(rows, din, dout) for rows in (1, 4, 8, 64, 65, 300)
 """(R, din, dout) of x [R, din] @ W [din, dout]."""
 
 BEAM_GEOMETRIES = [(videos, beams, s0, n) for videos, beams in ((1, 1), (2, 2), (2, 3), (1, 4))
-                   for s0 in (1, 7, 48, 128) for n in (1, 24, 40, 64)]
+                   for s0 in (1, 7, 48, 128) for n in (1, 24, 40, 64)] \
+    + [(1, 5, s0, 32) for s0 in (5, 48)]
 """(B, K, S0, N) of one beam-attention layer: q [B*K, H], prefill [B, S0, H],
-generated cache [N, 2, B*K, H]; the CPU sweep takes every step t < N in both
-modes, the GPU t = 0, N/2 and N-1."""
+generated cache [N, 2, B*K, H] (K=5, N=32: eval_compare's beam-5 decode);
+the CPU sweep takes every step t < N in both modes, the GPU t = 0, N/2 and
+N-1."""
 
 DECODE_GEOMETRIES = [(batch, length) for batch in (1, 3, 64) for length in (1, 17, 64, 300, 1024)]
 """(B, L) of one decode-attention layer: q [B, nh, 64] over K/V [B, L, nh, 64];

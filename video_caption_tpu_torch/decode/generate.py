@@ -1,16 +1,29 @@
 """Autoregressive generation with a static KV cache (counterpart of
 video_caption_tpu/decode/generate.py).
 
-Greedy / temperature-top-k-top-p sampling over the contiguous cache, and HF
-beam search (2K candidate expansion, EOS candidates moved to a finished set
-scored with length_penalty=1) over the split cache. The decode loops are
-Python loops over steps in the JAX package's forward-then-select order:
-token t is selected in the step whose forward produced its logits. Every
-step runs the full ``max_new_tokens``; finished rows keep stepping with
-their outputs frozen to EOS (the JAX ``early_stop`` option gives the same
-tokens and is not ported). A sampled decode draws the Gumbel noise of all
-its steps at once before its first step (``sample_noise``), as the unified
-decode does for each sampled group, so both take the same draws.
+Greedy / temperature-top-k-top-p sampling over the contiguous cache (or,
+with ``GPT2Config.sample_split_cache``, the split cache), and HF beam search
+(2K candidate expansion, EOS candidates moved to a finished set scored with
+length_penalty=1) over the split cache. The decode loops are Python loops
+over steps in the JAX package's forward-then-select order: token t is
+selected in the step whose forward produced its logits. Finished rows keep
+stepping with their outputs frozen to EOS. By default every step of
+``max_new_tokens`` runs; with ``DecodeParams.early_stop`` the loop ends
+early: a greedy/sampled decode once every row has finished, a beam search
+at HF's ``is_done``. The condition is read on the host before every step.
+Early stop runs eagerly (a captured graph runs a fixed number of steps),
+where the host issues each step's few hundred kernels one by one and the
+device is idle long before the read, so a read per step costs little and
+saves the most steps; the ids are those of the full-length loop at any
+interval, since finished rows are frozen to EOS. A sampled decode draws the
+Gumbel noise of all its steps at once before its first step
+(``sample_noise``), as the unified decode does for each sampled group, so
+both take the same draws.
+
+Selection takes the candidate-set path (``logits_process.topk_processed``)
+where it is exact, and the full-vocab processor chain otherwise
+(``_candidate_path_ok``): a repetition penalty below 1, or sampling with
+``top_k = 0``.
 
 do_sample gating is the reference's rule:
 ``do_sample = (num_beams == 1 and temperature != 1.0)``.
@@ -46,14 +59,19 @@ class DecodeParams:
         return self.num_beams == 1 and self.temperature != 1.0
 
 
-def _require_candidate_path(dp: DecodeParams) -> None:
-    """The candidate-set processor path is exact only when every processor
-    can only lower scores; the full-vocab scatter chain that the other
-    policies need is not ported yet."""
-    if dp.repetition_penalty < 1.0 or (dp.do_sample and dp.top_k <= 0):
-        raise NotImplementedError(
-            "only policies with repetition_penalty >= 1 (and top_k > 0 when sampling) "
-            "are ported")
+def _candidate_path_ok(dp: DecodeParams) -> bool:
+    """The candidate-set path is exact only when every processor can only
+    LOWER scores, i.e. repetition_penalty >= 1; else the full-vocab chain."""
+    return dp.repetition_penalty >= 1.0
+
+
+def _process_logits(logits: torch.Tensor, generated: torch.Tensor, t: int,
+                    dp: DecodeParams) -> torch.Tensor:
+    """The full-vocab processor chain: repetition penalty, no-repeat-ngram,
+    min-new-tokens."""
+    logits = lp.apply_repetition_penalty(logits, generated, t, dp.repetition_penalty)
+    logits = lp.apply_no_repeat_ngram(logits, generated, t, dp.no_repeat_ngram_size)
+    return lp.apply_min_new_tokens(logits, t, dp.min_new_tokens, dp.eos_id)
 
 
 def _topk_processed(scores, generated, t, k, dp: DecodeParams, **kw):
@@ -100,14 +118,26 @@ def sample_select(
 ):
     """One greedy/sampled selection step. Returns (token [B], generated,
     finished)."""
-    _require_candidate_path(dp)
-    if dp.do_sample:
-        vals, idxs = _topk_processed(last_logits, generated, t, dp.top_k, dp, wmax=wmax)
-        vals = lp.apply_temperature(vals, dp.temperature)
-        token = lp.sample_sorted_top_p(generator, vals, idxs, dp.top_p, noise=noise)
+    if _candidate_path_ok(dp) and (not dp.do_sample or dp.top_k > 0):
+        if dp.do_sample:
+            vals, idxs = _topk_processed(last_logits, generated, t, dp.top_k, dp, wmax=wmax)
+            vals = lp.apply_temperature(vals, dp.temperature)
+            token = lp.sample_sorted_top_p(generator, vals, idxs, dp.top_p, noise=noise)
+        else:
+            _, idxs = _topk_processed(last_logits, generated, t, 1, dp, wmax=wmax)
+            token = idxs[:, 0]
     else:
-        _, idxs = _topk_processed(last_logits, generated, t, 1, dp, wmax=wmax)
-        token = idxs[:, 0]
+        logits = _process_logits(last_logits, generated, t, dp)
+        if dp.do_sample:
+            logits = lp.apply_temperature(logits, dp.temperature)
+            if dp.top_k > 0:
+                token = lp.sample_top_k_top_p(generator, logits, dp.top_k, dp.top_p,
+                                              noise=noise)
+            else:
+                token = lp.sample_full(generator, lp.apply_top_p(logits, dp.top_p),
+                                       noise=noise)
+        else:
+            token = torch.argmax(logits, dim=-1)
     token = torch.where(finished, dp.eos_id, token)
     generated[:, t] = token
     return token, generated, finished | (token == dp.eos_id)
@@ -116,26 +146,31 @@ def sample_select(
 def sample_noise(dp: DecodeParams, rows: int, vocab_padded: int,
                  generator: Optional[torch.Generator], device) -> Optional[torch.Tensor]:
     """The Gumbel noise of every step of a sampled decode of ``rows`` rows,
-    [max_new_tokens, rows, min(top_k, vocab_padded)], drawn at once; None
-    for a greedy or beam policy, which draws nothing. Every sampled decode
+    [max_new_tokens, rows, min(top_k, vocab_padded)] (the whole padded
+    vocabulary with top_k = 0), drawn at once; None for a greedy or beam
+    policy, which draws nothing. Every sampled decode
     (``greedy_or_sample``, ``unified.generate_unified``) draws its noise
     here, before its first step, so programs that decode the same groups
     in the same order take the same draws from one generator."""
     if not dp.do_sample:
         return None
-    return lp.gumbel_noise((dp.max_new_tokens, rows, min(dp.top_k, vocab_padded)), generator,
-                           device)
+    width = min(dp.top_k, vocab_padded) if dp.top_k > 0 else vocab_padded
+    return lp.gumbel_noise((dp.max_new_tokens, rows, width), generator, device)
 
 
 def greedy_or_sample(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor,
                      dp: DecodeParams, generator: Optional[torch.Generator] = None,
                      prefill_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy or sampled decode over the contiguous cache (the flat one with
-    ``cfg.use_pallas_decode_layer``); returns ids [B, max_new_tokens] (EOS
-    after a row finishes)."""
+    ``cfg.use_pallas_decode_layer``; the split one with
+    ``cfg.sample_split_cache`` where neither fused-decode switch is on, the
+    JAX package's rule); returns ids [B, max_new_tokens] (EOS after a row
+    finishes)."""
     b, s0, _ = inputs_embeds.shape
     n = dp.max_new_tokens
     device = inputs_embeds.device
+    split = cfg.sample_split_cache and not cfg.use_pallas_decode_layer \
+        and not cfg.use_pallas_decode
     if cfg.use_pallas_decode_layer:
         # the decode-layer kernel's weight dtypes, cast once per call; no
         # copy and no kernel where the caller prepared them (the engine
@@ -144,20 +179,29 @@ def greedy_or_sample(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor,
     wte_t = g2.lm_head_t(params, cfg)
     noise = sample_noise(dp, b, wte_t.shape[1], generator, device)
     (logits, wmax, _, _), cache, valid, row_len = _prefill(
-        params, cfg, inputs_embeds, s0 + n, prefill_mask, wte_t, split=False, row_stats=False)
+        params, cfg, inputs_embeds, s0 if split else s0 + n, prefill_mask, wte_t, split=split,
+        row_stats=False)
+    if split:
+        gen_cache = g2.init_cache(cfg, b, n, device, layout="beam_gen")
     generated = torch.full((b, n), dp.eos_id, dtype=torch.int64, device=device)
     finished = torch.zeros((b,), dtype=torch.bool, device=device)
     token, generated, finished = sample_select(logits, generated, finished, 0, dp,
                                                generator, wmax=wmax,
                                                noise=None if noise is None else noise[0])
     for t in range(1, n):
+        if dp.early_stop and bool(finished.all()):
+            break
         # forward of token t-1: its K/V lands at cache column s0 + t - 1
-        embeds = params["wte"][token][:, None, :]
-        positions = (row_len + t - 1)[:, None]
-        valid[:, s0 + t - 1] = 1
-        (logits, wmax, _, _), cache = g2.gpt2_forward(
-            params, embeds, positions, valid, cache, s0 + t - 1, cfg,
-            wte_t=wte_t, return_stats=True, row_stats=False)
+        # (gen column t - 1 of the split cache)
+        embeds = params["wte"][token]
+        if split:
+            (logits, wmax, _, _), gen_cache = g2.gpt2_sample_step(
+                params, embeds, row_len + t - 1, cache, valid, gen_cache, t - 1, cfg, wte_t)
+        else:
+            valid[:, s0 + t - 1] = 1
+            (logits, wmax, _, _), cache = g2.gpt2_forward(
+                params, embeds[:, None, :], (row_len + t - 1)[:, None], valid, cache,
+                s0 + t - 1, cfg, wte_t=wte_t, return_stats=True, row_stats=False)
         token, generated, finished = sample_select(logits, generated, finished, t, dp,
                                                    generator, wmax=wmax,
                                                    noise=None if noise is None else noise[t])
@@ -176,20 +220,29 @@ def beam_select(
     stats: Tuple,                 # (wmax [B*K, Vp/128], m [B*K], l [B*K])
 ):
     """One beam-search selection step (HF semantics). Processors run on
-    log-softmax scores: the ranking uses raw logits and only the candidates
-    are shifted by (m, log l). Returns (new_token [B,K], flat_parent [B*K],
-    beam_scores, generated, fin_scores, fin_seqs)."""
-    _require_candidate_path(dp)
+    log-softmax scores: on the candidate path the ranking uses raw logits
+    and only the candidates are shifted by (m, log l); the full-vocab chain
+    processes the whole log-softmax. Returns (new_token [B,K], flat_parent
+    [B*K], beam_scores, generated, fin_scores, fin_seqs)."""
     b, _, n = generated.shape
     neg = -1e9
-    wmax, m, l = stats
-    row_vals, row_idx = _topk_processed(
-        last_logits.float(), generated.reshape(b * k, n), t, 2 * k, dp,
-        shift_max=m, shift_logsum=torch.log(l), wmax=wmax)
-    cand = (beam_scores.reshape(b * k, 1) + row_vals).reshape(b, 2 * k * k)
-    top_scores, pick = lp._top_k(cand, 2 * k)                    # [B, 2K]
-    parent = pick // (2 * k)
-    token = torch.gather(row_idx.reshape(b, 2 * k * k), 1, pick)
+    flat_gen = generated.reshape(b * k, n)
+    if _candidate_path_ok(dp):
+        wmax, m, l = stats
+        row_vals, row_idx = _topk_processed(
+            last_logits.float(), flat_gen, t, 2 * k, dp,
+            shift_max=m, shift_logsum=torch.log(l), wmax=wmax)
+        cand = (beam_scores.reshape(b * k, 1) + row_vals).reshape(b, 2 * k * k)
+        top_scores, pick = lp._top_k(cand, 2 * k)                    # [B, 2K]
+        parent = pick // (2 * k)
+        token = torch.gather(row_idx.reshape(b, 2 * k * k), 1, pick)
+    else:
+        logp = _process_logits(torch.log_softmax(last_logits.float(), dim=-1), flat_gen, t, dp)
+        v = logp.shape[-1]
+        cand = (beam_scores.reshape(b * k, 1) + logp).reshape(b, k * v)
+        top_scores, top_idx = lp._top_k(cand, 2 * k)                 # [B, 2K]
+        parent = top_idx // v
+        token = top_idx % v
 
     is_eos = token == dp.eos_id
     # finished hypotheses, normalized by generated length incl. EOS
@@ -220,6 +273,14 @@ def beam_finalize(beam_scores, generated, fin_scores, fin_seqs, n: int) -> torch
     all_seqs = torch.cat([fin_seqs, generated], dim=1)
     best = torch.argmax(all_scores, dim=1)
     return all_seqs[torch.arange(all_seqs.shape[0], device=best.device), best]
+
+
+def beams_done(beam_scores: torch.Tensor, fin_scores: torch.Tensor, t: int) -> bool:
+    """HF ``is_done`` (early_stopping=False) before step t, read on the
+    host: every video's K finished hypotheses beat the best running beam's
+    attainable score, ``min(fin_scores) >= max(beam_scores) / t``."""
+    best_possible = beam_scores.amax(dim=1) / max(float(t), 1.0)
+    return bool((fin_scores.amin(dim=1) >= best_possible).all())
 
 
 def beam_search(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor, dp: DecodeParams,
@@ -253,6 +314,8 @@ def beam_search(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor, dp: Dec
     anc = anc[parent]
     anc[:, 0] = rows
     for t in range(1, n):
+        if dp.early_stop and beams_done(beam_scores, fin_scores, t):
+            break
         # forward of token t-1: its K/V lands at gen column t-1
         embeds = params["wte"][token.reshape(-1)]
         (logits, wmax, m, l), gen_cache = g2.gpt2_beam_step(

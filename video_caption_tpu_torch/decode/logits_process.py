@@ -6,8 +6,13 @@ every preset takes: the exact two-stage top-k driven by the lm-head kernel's
 window maxima (``exact_topk``), the processor chain applied to the raw
 top-(k + N + 1) candidates only (``topk_processed``: repetition penalty,
 no-repeat-ngram, min-new-tokens), temperature, and nucleus sampling over the
-sorted candidates (``sample_sorted_top_p``). The full-vocab scatter chain,
-which only a repetition penalty below 1 needs, is still to port.
+sorted candidates (``sample_sorted_top_p``); and the full-vocab chain the
+other policies take (a repetition penalty below 1, which RAISES seen scores
+and breaks the candidate bound, or sampling with ``top_k = 0``):
+``apply_repetition_penalty``, ``apply_no_repeat_ngram``,
+``apply_min_new_tokens``, ``apply_top_k``, ``apply_top_k_top_p``,
+``apply_top_p`` and ``sample_top_k_top_p``. A draw is ``argmax(scores +
+Gumbel noise)``, the form of ``jax.random.categorical``.
 
 Every top-k here is ``_top_k``: a stable descending sort, so equal values
 keep ascending-index order exactly as ``lax.top_k`` orders them.
@@ -17,6 +22,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = float("-inf")
 
@@ -44,7 +50,7 @@ def _topk_flat(flat: torch.Tensor, k: int, sub: int = 8, small: int = 512):
         return _top_k(flat, k)
     nsub = -(-m // sub)
     if nsub * sub != m:
-        flat = torch.nn.functional.pad(flat, (0, nsub * sub - m), value=NEG_INF)
+        flat = F.pad(flat, (0, nsub * sub - m), value=NEG_INF)
     smax = flat.reshape(b, nsub, sub).amax(dim=-1)
     _, sidx = _top_k(smax, k)
     cand = _gather_windows(flat, sidx, nsub, sub)
@@ -53,15 +59,24 @@ def _topk_flat(flat: torch.Tensor, k: int, sub: int = 8, small: int = 512):
     return vals, idxs
 
 
-def exact_topk(scores: torch.Tensor, k: int, wmax: torch.Tensor):
+def exact_topk(scores: torch.Tensor, k: int, wmax: Optional[torch.Tensor] = None):
     """Exact top-k over the vocab axis from the window maxima ``wmax``
-    [B, V/window] (the lm-head kernel emits them): top-k windows by max, then
-    the top-k within the gathered windows. A value in the true top-k has
-    fewer than k windows whose max exceeds it, so its window is always among
-    the top-k window maxima. Returns (vals [B,k], idxs [B,k]) descending."""
+    [B, V/window] (the lm-head kernel emits them over 128-wide windows;
+    computed here alike, the scores padded with -inf, when None): top-k
+    windows by max, then the top-k within the gathered windows. A value in
+    the true top-k has fewer than k windows whose max exceeds it, so its
+    window is always among the top-k window maxima. Returns (vals [B,k],
+    idxs [B,k]) descending."""
     b, v = scores.shape
     if k >= v:
         return _top_k(scores, v)
+    if wmax is None:
+        window = 128
+        nwin = -(-v // window)
+        if nwin * window != v:
+            scores = F.pad(scores, (0, nwin * window - v), value=NEG_INF)
+        wmax = scores.reshape(b, nwin, window).amax(dim=-1)
+        v = nwin * window
     nwin = wmax.shape[1]
     window = v // nwin
     if nwin * window != v:
@@ -168,3 +183,112 @@ def sample_sorted_top_p(
         noise = gumbel_noise(vals.shape, generator, vals.device)
     choice = torch.argmax(vals + noise, dim=-1)
     return torch.gather(idxs, 1, choice[:, None])[:, 0]
+
+
+# ---- the full-vocab chain -------------------------------------------------
+
+
+def _scatter_rows(logits: torch.Tensor, idx: torch.Tensor, src, keep: torch.Tensor
+                  ) -> torch.Tensor:
+    """A copy of ``logits`` [B, V] with ``src`` (a tensor shaped as ``idx``,
+    or a number) written at columns ``idx`` where ``keep`` holds; the other
+    entries go to one extra column that is dropped (the JAX package's
+    out-of-bounds ``mode="drop"`` scatter). Every duplicate kept index
+    carries the same value, so the result is deterministic."""
+    b, v = logits.shape
+    out = F.pad(logits, (0, 1))
+    out.scatter_(1, torch.where(keep, idx.long(), v), src)
+    return out[:, :v]
+
+
+def apply_repetition_penalty(logits: torch.Tensor, generated: torch.Tensor, t: int,
+                             penalty: float) -> torch.Tensor:
+    """HF CTRL-style penalty on the tokens generated so far (the first
+    ``t`` columns of ``generated``): a seen score s > 0 becomes s / p, else
+    s * p, computed from the incoming scores."""
+    if penalty == 1.0:
+        return logits
+    cur = torch.gather(logits, 1, generated.long())
+    pen = torch.where(cur > 0, cur / penalty, cur * penalty)
+    seen = torch.arange(generated.shape[1], device=logits.device)[None, :] < t
+    return _scatter_rows(logits, generated, pen, seen.expand_as(generated))
+
+
+def apply_no_repeat_ngram(logits: torch.Tensor, generated: torch.Tensor, t: int,
+                          ngram_size: int) -> torch.Tensor:
+    """Ban token x if (generated[t-n+1 : t], x) already occurred as an n-gram."""
+    if ngram_size <= 0 or generated.shape[1] < ngram_size:
+        return logits
+    banned_tok, match = ngram_banned(generated, t, ngram_size)
+    return _scatter_rows(logits, banned_tok, NEG_INF, match)
+
+
+def apply_min_new_tokens(logits: torch.Tensor, t: int, min_new_tokens: int,
+                         eos_id: int) -> torch.Tensor:
+    """EOS is unreachable until ``min_new_tokens`` tokens have been generated."""
+    if min_new_tokens <= 0 or t >= min_new_tokens:
+        return logits
+    out = logits.clone()
+    out[:, eos_id] = NEG_INF
+    return out
+
+
+def apply_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Keep only the top_k logits per row (HF TopKLogitsWarper)."""
+    if top_k <= 0:
+        return logits
+    kth = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1).values[..., -1:]
+    return torch.where(logits < kth, NEG_INF, logits)
+
+
+def _nucleus_threshold(top_vals: torch.Tensor, lse: torch.Tensor, top_p: float) -> torch.Tensor:
+    """The smallest kept value of the nucleus over descending ``top_vals``
+    (softmax normalised by ``lse``) [B, 1]."""
+    probs = torch.exp(top_vals - lse)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < top_p
+    return torch.where(keep, top_vals, float("inf")).amin(dim=-1, keepdim=True)
+
+
+def apply_top_k_top_p(logits: torch.Tensor, top_k: int, top_p: float) -> torch.Tensor:
+    """HF TopK(k) -> TopP(p) in one top-k pass: the nucleus of the
+    TopK-filtered distribution lies within the top-k values."""
+    if top_k <= 0:
+        return apply_top_p(logits, top_p)
+    if top_p >= 1.0:
+        return apply_top_k(logits, top_k)
+    top_vals = torch.topk(logits, min(top_k, logits.shape[-1]), dim=-1).values
+    lse = torch.logsumexp(top_vals, dim=-1, keepdim=True)
+    thresh = torch.maximum(top_vals[..., -1:], _nucleus_threshold(top_vals, lse, top_p))
+    return torch.where(logits >= thresh, logits, NEG_INF)
+
+
+def apply_top_p(logits: torch.Tensor, top_p: float, nucleus_cap: int = 2048) -> torch.Tensor:
+    """Nucleus filtering (HF TopPLogitsWarper, min_tokens_to_keep=1) over
+    the full-vocab softmax, the nucleus sought within the top
+    ``nucleus_cap`` logits (exact whenever it fits there, as in the JAX
+    package). Padded columns at -inf stay -inf."""
+    if top_p >= 1.0:
+        return logits
+    top_vals = torch.topk(logits, min(nucleus_cap, logits.shape[-1]), dim=-1).values
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    return torch.where(logits >= _nucleus_threshold(top_vals, lse, top_p), logits, NEG_INF)
+
+
+def sample_top_k_top_p(generator: Optional[torch.Generator], logits: torch.Tensor, top_k: int,
+                       top_p: float, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token per row from the TopK -> TopP-filtered distribution, drawn
+    over the exact top-k candidates (tokens outside them have probability
+    0). ``noise`` [B, min(top_k, V)] as in ``sample_sorted_top_p``."""
+    v = logits.shape[-1]
+    vals, idxs = exact_topk(logits, min(top_k if top_k > 0 else v, v))
+    return sample_sorted_top_p(generator, vals, idxs, top_p, noise=noise)
+
+
+def sample_full(generator: Optional[torch.Generator], logits: torch.Tensor,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token per row from softmax(logits) over the whole vocabulary:
+    argmax(logits + Gumbel noise [B, V]), ``jax.random.categorical``."""
+    if noise is None:
+        noise = gumbel_noise(logits.shape, generator, logits.device)
+    return torch.argmax(logits + noise, dim=-1)

@@ -8,8 +8,11 @@ per group. Narrower groups pad their blocks with dead rows (identity
 ancestry, EOS tokens, never selected); a sampled or greedy row is the k=0
 row of its instance block, also with identity ancestry. Selection runs per
 group on its rows through the grouped path's own ``beam_select`` and
-``sample_select``; a group whose ``max_new_tokens`` has passed is frozen
-(its state kept, EOS fed) while the loop runs to the longest horizon.
+``sample_select`` (so a group takes the candidate-set or the full-vocab
+chain as it would alone, and int8 block weights serve the shared step as
+any other); a group whose ``max_new_tokens`` has passed is frozen (its
+state kept, EOS fed) while the loop runs to the longest horizon. Early stop
+keeps a request out of this loop (the engine's ``_unified_eligible``).
 
 The ids equal ``generate_prefixed`` run group by group, for any number of
 sampled groups: a sampled group draws its Gumbel noise for all of its steps

@@ -12,7 +12,15 @@ default, as in the JAX package) put the greedy/sampled decode steps through
 the decode-attention or the whole-step decode-layer kernel;
 ``deferred_decode_cache_write`` (off by default) writes each decode step's
 K/V once after the layer loop, with the beam-attention kernel in its
-deferred mode.
+deferred mode. ``sample_split_cache`` (off by default) puts the
+greedy/sampled steps on the beam path's split cache.
+``quantize_decoder_int8`` stores the four block matmul weights of every
+GPT-2 layer as int8 with f32 per-channel scales, quantized after the bf16
+cast, and turns ``use_pallas_decode_layer`` off (that kernel reads plain
+weights), as the JAX engine does. ``early_stop_decode`` ends a decode once
+every row (at HF's ``is_done`` for beams) has finished, with a read of the
+condition on the host; such a request runs eagerly, group by group, since a
+captured graph runs a fixed number of steps.
 
 A single video is served, as in the JAX package, by one request program
 from the uploaded video to the token ids of every decode group
@@ -41,10 +49,13 @@ of its own, captured on first use; dispatch replays it, enqueues the ids'
 copy into a pinned host buffer of the handle and returns without waiting.
 
 Not ported yet: the overlapped chunk upload and its feats program, the
-serialized request artifact and the 4:2:0 wire.
+serialized request artifact and the 4:2:0 wire. ``overlap_single_upload``
+and ``yuv420_wire`` are accepted and not honoured (a log line at
+construction says so); results are those of the RGB upload either way.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import logging
 import os
@@ -71,6 +82,7 @@ from video_caption_tpu_torch.models import caption_model as cm
 from video_caption_tpu_torch.models import gpt2 as g2
 from video_caption_tpu_torch.models import vit as vt
 from video_caption_tpu_torch.models.convert import load_reference_state, merge_params
+from video_caption_tpu_torch.models.quantize import is_scale, quantize_gpt2_blocks
 
 log = logging.getLogger(__name__)
 
@@ -86,7 +98,8 @@ def model_config_from_inference(config: InferenceConfig) -> cm.CaptionModelConfi
         gpt2=g2.GPT2Config(dtype=dtype,
                            use_pallas_decode=config.compile.use_pallas_decode_attention,
                            use_pallas_decode_layer=config.compile.use_pallas_decode_layer,
-                           deferred_cache_write=config.compile.deferred_decode_cache_write),
+                           deferred_cache_write=config.compile.deferred_decode_cache_write,
+                           sample_split_cache=config.compile.sample_split_cache),
         prefix_len=config.prefix_len,
         ln_scale=config.ln_scale,
         in_weight=config.in_weight,
@@ -115,8 +128,10 @@ def load_params(config: InferenceConfig, model_cfg: cm.CaptionModelConfig, seed:
 
 
 def _cast_floating(tree, dtype: torch.dtype):
+    """Floating leaves in ``dtype``; an int8 weight's f32 scales stay f32."""
     return {k: _cast_floating(v, dtype) if isinstance(v, dict)
-            else (v.to(dtype) if v.is_floating_point() else v) for k, v in tree.items()}
+            else (v.to(dtype) if v.is_floating_point() and not is_scale(tree, k) else v)
+            for k, v in tree.items()}
 
 
 
@@ -139,21 +154,38 @@ class InferenceEngine:
 
     def __init__(self, config: InferenceConfig, params: Optional[dict] = None, seed: int = 0,
                  model_cfg: Optional[cm.CaptionModelConfig] = None, device="cuda"):
-        if config.compile.quantize_decoder_int8:
-            raise NotImplementedError("int8 decoder weights are not ported yet")
         if config.mesh.num_devices > 1:
             raise NotImplementedError("multi-device inference is not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but no CUDA device is available")
         self.config = config
+        cc = config.compile
         self.model_cfg = model_cfg or model_config_from_inference(config)
+        if cc.quantize_decoder_int8 and self.model_cfg.gpt2.use_pallas_decode_layer:
+            log.info("quantize_decoder_int8: use_pallas_decode_layer is off (the decode-layer "
+                     "kernel reads plain weights)")
+            self.model_cfg = dataclasses.replace(self.model_cfg, gpt2=dataclasses.replace(
+                self.model_cfg.gpt2, use_pallas_decode_layer=False))
+        for switch, item in (("yuv420_wire", 6), ("overlap_single_upload", 4)):
+            if getattr(cc, switch):
+                log.info("compile.%s is accepted and not honoured yet (ROADMAP Queue 1, item "
+                         "%d): frames upload as RGB", switch, item)
+        # a captured graph runs a fixed number of steps: early stop runs eagerly
+        self._capture = cc.aot_request_program and not cc.early_stop_decode
+        if cc.aot_request_program and cc.early_stop_decode:
+            log.info("early_stop_decode: requests and batches run eagerly, group by group, "
+                     "not on a captured graph")
         params = params if params is not None else load_params(
             config, self.model_cfg, seed, self.device)
         if self.model_cfg.vit.dtype == torch.bfloat16:
             # inference weights are stored bf16: every decode step reads all
             # GPT-2 weights, so f32 storage doubles the bytes of the loop
             params = _cast_floating(params, torch.bfloat16)
+        if cc.quantize_decoder_int8:
+            # after the bf16 cast, as the JAX engine: the scales stay f32
+            # and the int8 tensors stay int8 in device memory
+            params = {**params, "decoder": quantize_gpt2_blocks(params["decoder"])}
         if self.model_cfg.gpt2.use_pallas_decode_layer:
             # the decode-layer kernel's weight dtypes, cast once here:
             # greedy_or_sample's own cast is then a no-op (no copy, no
@@ -206,6 +238,7 @@ class InferenceEngine:
             repetition_penalty=kw.get("repetition_penalty", 1.1),
             min_new_tokens=kw.get("min_new_tokens", 8),
             eos_id=self.tokenizer.eos_token_id,
+            early_stop=self.config.compile.early_stop_decode,
         )
 
     def generate_once(self, prefix: torch.Tensor, prompt: str, **decode_kwargs) -> str:
@@ -359,7 +392,7 @@ class InferenceEngine:
 
     def _serves_on_program(self, video: torch.Tensor) -> bool:
         cc = self.config.compile
-        return video.shape[0] == 1 and cc.aot_request_program and (
+        return video.shape[0] == 1 and self._capture and (
             cc.fuse_single_request or cc.fuse_request_program)
 
     def request_graph(self, video: torch.Tensor) -> RequestGraph:
@@ -387,7 +420,7 @@ class InferenceEngine:
         program, group_list = self._program_for(video)
         if self.device.type != "cuda":
             return Dispatched(_pack(program(video)), None, group_list, video.shape[0])
-        if self.config.compile.aot_request_program:
+        if self._capture:
             flat = self.request_graph(video).replay(video)
         else:
             flat = _pack(program(video))

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from video_caption_tpu_torch.models.caption_model import CaptionModelConfig
+from video_caption_tpu_torch.models.quantize import is_scale
 
 log = logging.getLogger(__name__)
 
@@ -34,14 +35,16 @@ Params = Dict[str, Any]
 def params_from_jax_numpy(tree: Mapping, cfg: CaptionModelConfig, device,
                           dtype: torch.dtype = None) -> Params:
     """JAX parameter tree (numpy leaves) -> the port's tree of tensors on
-    ``device``; floating leaves are cast to ``dtype`` when given."""
+    ``device``; floating leaves are cast to ``dtype`` when given. A decoder
+    quantized by the JAX package (``quantize_gpt2_blocks``) comes across as
+    it is: ``*_q`` int8, ``*_s`` f32 (never cast), not quantized again."""
     del cfg  # the layouts are shared; cfg documents which model the tree is
 
-    def conv(x):
+    def conv(x, scale=False):
         if isinstance(x, Mapping):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, is_scale(x, k)) for k, v in x.items()}
         t = torch.from_numpy(np.array(x, copy=True))
-        if dtype is not None and t.is_floating_point():
+        if dtype is not None and t.is_floating_point() and not scale:
             t = t.to(dtype)
         return t.to(device)
 

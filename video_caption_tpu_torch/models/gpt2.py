@@ -15,7 +15,11 @@ cache layouts of the JAX package:
 - for beam search, a read-only prefill cache ``{k, v: [L, B, S0, H]}``
   shared by a video's beams plus an append-only, time-major generated cache
   ``[L, N, 2, R, H]`` read by the beam-attention kernel
-  (ops/beam_attention.py) through the ancestry index ``anc``.
+  (ops/beam_attention.py) through the ancestry index ``anc``;
+- the same split pair at K=1 with ``sample_split_cache`` (off by default,
+  as in the JAX package): greedy/sampled steps through
+  ``gpt2_sample_step``, whose attention (``_sample_attend``) is plain
+  PyTorch, as it is XLA einsums there.
 
 Both decode switches are off by default, as in the JAX package; with both
 set, the flat cache (decode_layer) takes the step. ``deferred_cache_write``
@@ -34,6 +38,10 @@ has no cache at all: each layer attends over its own K/V, since an in-place
 write would bump the version of a tensor autograd saved for the backward.
 The LM head of every decode step runs through the lm-head kernel
 (ops/lm_head.py), which also emits the selection statistics.
+
+The four block matmul weights may be stored int8 with f32 scales
+(models/quantize.py); every product takes its weight through
+``block_weight``, which dequantizes it into the compute dtype.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from video_caption_tpu_torch.models.quantize import block_weight, is_quantized
 from video_caption_tpu_torch.models.vit import layer_norm, linear
 from video_caption_tpu_torch.ops.beam_attention import beam_attention
 from video_caption_tpu_torch.ops.decode_attention import decode_attention
@@ -74,6 +83,12 @@ class GPT2Config:
     """Decode steps hold every layer's new K/V and write the whole stack
     with one store after the layer loop; attention takes the current token
     as an explicit extra column. Tokens are those of the per-layer writes."""
+    sample_split_cache: bool = False
+    """Greedy/sampled (K=1) decode over the beam path's split cache: the
+    prefill K/V once per row ([L,B,S0,H], heads merged, read-only) and a
+    time-major generated region [L,N,2,B,H] (``gpt2_sample_step``). Taken
+    only when neither use_pallas_decode_layer nor use_pallas_decode is on;
+    tokens are those of the contiguous cache."""
 
     @property
     def head_dim(self) -> int:
@@ -114,7 +129,8 @@ def init_cache(cfg: GPT2Config, batch: int, max_len: int, device,
     """Zeroed KV cache in the compute dtype: ``contiguous`` {kv: [L, B,
     max_len, 2, nh, hd]} (K at index 0, V at 1), ``kvf`` {kvf: [L, max_len,
     B, 2H]} (K in [..., :H], V in [..., H:]) or ``beam_gen`` {kv: [L,
-    max_len(N), 2, batch(R), H]}; ``auto`` is ``kvf`` with
+    max_len(N), 2, batch(R), H]} (the generated region of the beam step's
+    split cache, and of the K=1 step's at batch B); ``auto`` is ``kvf`` with
     use_pallas_decode_layer, else ``contiguous``. Unlike the JAX package the
     flat layout is not gated on the device: on the CPU its step runs the
     kernel's plain version."""
@@ -156,7 +172,10 @@ def lm_stats(x2: torch.Tensor, wte_t: torch.Tensor, cfg: GPT2Config,
 def prepare_decode_params(params: Params, cfg: GPT2Config) -> Params:
     """The stacked block weights as the decode-layer kernel takes them, cast
     once per generate call (outside the step loop): LayerNorm weights in
-    f32, the rest in the compute dtype."""
+    f32, the rest in the compute dtype. The kernel reads plain weights, so
+    int8 blocks are refused (the engine turns the kernel off under int8)."""
+    if is_quantized(params["blocks"]):
+        raise ValueError("the decode-layer kernel takes plain weights, not int8 blocks")
     blocks = {k: v.float() if k.startswith("ln") else v.to(cfg.dtype)
               for k, v in params["blocks"].items()}
     return {**params, "blocks": blocks}
@@ -172,9 +191,17 @@ def _position_embeds(params: Params, positions: torch.Tensor, dt: torch.dtype) -
 
 def _mlp(x: torch.Tensor, blk: Params, cfg: GPT2Config) -> torch.Tensor:
     m = linear(layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], cfg.ln_eps),
-               blk["fc_w"], blk["fc_b"])
+               block_weight(blk, "fc_w", x.dtype), blk["fc_b"])
     m = F.gelu(m.float(), approximate="tanh").to(x.dtype)
-    return linear(m, blk["out_w"], blk["out_b"])
+    return linear(m, block_weight(blk, "out_w", x.dtype), blk["out_b"])
+
+
+def _qkv(a_in: torch.Tensor, blk: Params) -> torch.Tensor:
+    return linear(a_in, block_weight(blk, "attn_w", a_in.dtype), blk["attn_b"])
+
+
+def _proj(a_out: torch.Tensor, blk: Params) -> torch.Tensor:
+    return linear(a_out, block_weight(blk, "proj_w", a_out.dtype), blk["proj_b"])
 
 
 def _attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -253,7 +280,7 @@ def gpt2_forward(
     for layer in range(cfg.n_layer):
         blk = {k: v[layer] for k, v in blocks.items()}
         a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
-        qkv = linear(a_in, blk["attn_w"], blk["attn_b"]).reshape(b, s, 3, cfg.n_head, cfg.head_dim)
+        qkv = _qkv(a_in, blk).reshape(b, s, 3, cfg.n_head, cfg.head_dim)
         if deferred:
             # the new K/V wait for one stacked write after the loop
             kv_news.append(qkv[:, 0, 1:3])
@@ -263,7 +290,7 @@ def gpt2_forward(
             kv[layer, :, offset:offset + s] = qkv[:, :, 1:3].to(kv.dtype)
             a_out = _attend(qkv[:, :, 0], kv[layer, :, :, 0], kv[layer, :, :, 1],
                             offset, valid_mask, cfg)
-        x = x + linear(a_out, blk["proj_w"], blk["proj_b"])
+        x = x + _proj(a_out, blk)
         x = x + _mlp(x, blk, cfg)
     if deferred:
         kv[:, :, offset] = torch.stack(kv_news).to(kv.dtype)     # [L, B, 2, nh, hd]
@@ -330,7 +357,7 @@ def gpt2_beam_step(
     for layer in range(cfg.n_layer):
         blk = {k: v[layer] for k, v in blocks.items()}
         a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
-        qkv = linear(a_in, blk["attn_w"], blk["attn_b"]).reshape(r, 3, h)
+        qkv = _qkv(a_in, blk).reshape(r, 3, h)
         if deferred:
             kv_news.append(qkv[:, 1:3].transpose(0, 1))
             new = dict(k_new=qkv[:, 1], v_new=qkv[:, 2])
@@ -339,12 +366,91 @@ def gpt2_beam_step(
             new = {}
         out = beam_attention(qkv[:, 0], gkv[layer], pk_all[layer], pv_all[layer],
                              prefill_valid, anc, t, num_beams, cfg.n_head, **new)
-        x = x + linear(out, blk["proj_w"], blk["proj_b"])
+        x = x + _proj(out, blk)
         x = x + _mlp(x, blk, cfg)
     if deferred:
         gkv[:, t] = torch.stack(kv_news).to(gkv.dtype)            # [L, 2, R, H]
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
     return lm_stats(x, wte_t, cfg, need_row_stats=True), gen_cache
+
+
+def _sample_attend(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor, gk: torch.Tensor,
+                   gv: torch.Tensor, prefill_valid: torch.Tensor, t: int, cfg: GPT2Config,
+                   k_new: Optional[torch.Tensor] = None,
+                   v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K=1 attention over the split cache (plain PyTorch, as the JAX
+    package's XLA form): q [B,H], one layer's prefill K/V [B,S0,H] and gen
+    K/V [N,B,H] -> [B,H] (before the output projection). Each row attends
+    to its own prefill (``prefill_valid``) and its own gen columns <= t (< t
+    in the deferred mode, whose ``k_new``/``v_new`` [B,H] are one extra
+    self column, last). Logits and the gen-region AV in f32, the prefill AV
+    in the compute dtype, as there."""
+    dt = cfg.dtype
+    b, s0 = prefill_valid.shape
+    n, nh, hd = gk.shape[0], cfg.n_head, cfg.head_dim
+    scale = hd ** -0.5
+    qh = q.reshape(b, nh, hd).float()
+    lp = torch.einsum("bqd,bsqd->bqs", qh, pk.reshape(b, s0, nh, hd).float()) * scale
+    lp = torch.where(prefill_valid[:, None, :] > 0, lp, _NEG)
+    lg = torch.einsum("bqd,nbqd->bqn", qh, gk.reshape(n, b, nh, hd).float()) * scale
+    deferred = k_new is not None
+    causal = torch.arange(n, device=q.device) < (t if deferred else t + 1)
+    parts = [lp, torch.where(causal, lg, _NEG)]
+    if deferred:
+        parts.append((qh * k_new.to(dt).reshape(b, nh, hd).float()).sum(-1, keepdim=True)
+                     * scale)
+    attn = torch.softmax(torch.cat(parts, dim=-1), dim=-1).to(dt)           # [B,nh,S0+N(+1)]
+    out_p = torch.einsum("bqs,bsqd->bqd", attn[..., :s0], pv.reshape(b, s0, nh, hd).to(dt))
+    out_g = torch.einsum("bqn,nbqd->bqd", attn[..., s0:s0 + n].float(),
+                         gv.reshape(n, b, nh, hd).float()).to(dt)
+    if deferred:
+        out_g = out_g + attn[..., s0 + n:] * v_new.to(dt).reshape(b, nh, hd)
+    return (out_p + out_g).reshape(b, cfg.n_embd)
+
+
+def gpt2_sample_step(
+    params: Params,
+    token_embeds: torch.Tensor,    # [B, H] one new token per row
+    positions: torch.Tensor,       # [B] absolute position ids
+    prefill_cache: Cache,          # {k, v: [L, B, S0, H]} read-only
+    prefill_valid: torch.Tensor,   # [B, S0] int32 left-pad flags
+    gen_cache: Cache,              # {kv: [L, N, 2, B, H]} append-only, updated in place
+    t: int,                        # current step (gen column)
+    cfg: GPT2Config,
+    wte_t: torch.Tensor,           # [H, Vp]
+) -> Tuple[Tuple, Cache]:
+    """One greedy/sampled decode step over the split cache
+    (``sample_split_cache``): gpt2_beam_step's structure at K=1 with a
+    causal mask instead of the ancestry. Writes step t's K/V at gen column
+    t (all layers' in one store after the layer loop with
+    ``deferred_cache_write``) and returns (lm_stats 4-tuple without row
+    stats, gen_cache)."""
+    dt = cfg.dtype
+    b, h = token_embeds.shape
+    x = token_embeds.to(dt) + _position_embeds(params, positions, dt)   # [B, H]
+    gkv = gen_cache["kv"]
+    pk_all, pv_all = prefill_cache["k"], prefill_cache["v"]
+    blocks = params["blocks"]
+    deferred = cfg.deferred_cache_write
+    kv_news = []
+    for layer in range(cfg.n_layer):
+        blk = {k: v[layer] for k, v in blocks.items()}
+        a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
+        qkv = _qkv(a_in, blk).reshape(b, 3, h)
+        if deferred:
+            kv_news.append(qkv[:, 1:3].transpose(0, 1))
+            new = dict(k_new=qkv[:, 1], v_new=qkv[:, 2])
+        else:
+            gkv[layer, t] = qkv[:, 1:3].transpose(0, 1).to(gkv.dtype)
+            new = {}
+        out = _sample_attend(qkv[:, 0], pk_all[layer], pv_all[layer], gkv[layer, :, 0],
+                             gkv[layer, :, 1], prefill_valid, t, cfg, **new)
+        x = x + _proj(out, blk)
+        x = x + _mlp(x, blk, cfg)
+    if deferred:
+        gkv[:, t] = torch.stack(kv_news).to(gkv.dtype)            # [L, 2, B, H]
+    x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
+    return lm_stats(x, wte_t, cfg, need_row_stats=False), gen_cache
 
 
 def gpt2_logits_nocache(params: Params, inputs_embeds: torch.Tensor, positions: torch.Tensor,
@@ -362,9 +468,9 @@ def gpt2_logits_nocache(params: Params, inputs_embeds: torch.Tensor, positions: 
     for layer in range(cfg.n_layer):
         blk = {k: v[layer] for k, v in blocks.items()}
         a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
-        qkv = linear(a_in, blk["attn_w"], blk["attn_b"]).reshape(b, s, 3, cfg.n_head, cfg.head_dim)
+        qkv = _qkv(a_in, blk).reshape(b, s, 3, cfg.n_head, cfg.head_dim)
         a_out = _attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], 0, valid, cfg)
-        x = x + linear(a_out, blk["proj_w"], blk["proj_b"])
+        x = x + _proj(a_out, blk)
         x = x + _mlp(x, blk, cfg)
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
     return x.float() @ params["wte"].to(dt).float().t()

@@ -18,7 +18,7 @@ Two modes, as in the TPU kernel:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,6 +36,9 @@ _NEG = -1e30
 
 launches = 0
 """Number of times ``beam_attention`` launched its CUDA kernel (both modes)."""
+launches_by_beams: Dict[int, int] = {}
+"""The same launches by beam count K, counted by the wrapper itself (a CUDA
+graph's replay adds to ``launches`` only)."""
 
 
 @dataclass(frozen=True)
@@ -256,4 +259,5 @@ def beam_attention(q: torch.Tensor, gkv: torch.Tensor, pk: torch.Tensor, pv: tor
                  num_beams, s0, n, int(t), int(deferred), p.stage_rows, p.smem,
                  build.dtype_code(q.dtype), build.stream_of(q))
     launches += 1
+    launches_by_beams[num_beams] = launches_by_beams.get(num_beams, 0) + 1
     return out

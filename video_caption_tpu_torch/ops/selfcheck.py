@@ -615,10 +615,12 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     encoder_attention also runs at the trainers' 4 x 8 frames (f32 in the
     joint step, bf16 in the mapper step), prefix_projector at 1, 8, 4 (the
     mapper step) and 64 rows, lm_head from one row to 256 (12: the serving
-    presets' unified request; 24 and 96: batches), beam_attention in both
+    presets' unified request; 24 and 96: batches; 5: eval_compare's beam-5
+    decode of one video), beam_attention in both
     modes at the serving presets' unified blocks (R=12, K_max 4) and at the
     grouped single-request shapes (t = N/2, 0, N-1), at 16 videos x 3 beams
     (a batch of 8 with two beam presets) and at 64 x 3 (batched serving),
+    eval_compare's beam-5 decode (B=1, K=5, a 5-column prefill, 32 steps),
     decode_attention at B=64 (batched), at B=2, L=300 and B=1, L=1024 (split
     over a cluster), on a row with no visible column, over stale rows of
     1e4, in f32, and at L=4096 (chunks), and decode_layer at B=1 and 8 over
@@ -628,7 +630,7 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     out += [check_encoder_attention(32, device, dtype=torch.float32),   # joint step
             check_encoder_attention(32, device)]                        # mapper step
     out += [check_prefix_projector(b, device) for b in (1, 8, 4, 64)]   # 4: the mapper step
-    out += [check_lm_head(r, device) for r in (9, 6, 1, 12, 24, 96, 192, 64, 256)]
+    out += [check_lm_head(r, device) for r in (9, 6, 1, 12, 24, 96, 192, 64, 256, 5)]
     # the unified request's blocks: core presets (beam-3 x 2, natural) and
     # serving presets (beam-3 with a dead row, beam-4, natural and 3 dead rows)
     out += [check_beam_attention(3, 3, 48, 24, 12, device, live=(3, 3, 1))]
@@ -640,6 +642,7 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     out += [check_beam_attention(16, 3, 48, 24, 12, device)]   # a batch of 8: 2 presets x 8
     out += [check_beam_attention(64, 3, 48, 24, 12, device, deferred=deferred)   # batched
             for deferred in (False, True)]
+    out += [check_beam_attention(1, 5, 5, 32, t, device) for t in (16, 0, 31)]   # eval
     out += [check_decode_attention(b, 64, device) for b in (1, 64)]
     out += [check_decode_attention(2, 300, device), check_decode_attention(1, 1024, device),
             check_decode_attention(2, 64, device, empty_row=True),
