@@ -25,16 +25,20 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    decodes the three presets in one unified beam-step loop
    (``compile.unified_fused_request``). Beside it its eager twin
    (``compile.aot_request_program`` off: group by group, op by op; the same
-   seed and parameters). Each takes a warm-up request (the graph's
-   capture) and then the same timed requests through
-   ``InferenceEngine.infer`` with the core presets; the token ids of one
+   seed and parameters). Each takes a warm-up (the graphs' captures) and
+   then the same timed requests through ``InferenceEngine.infer`` with the
+   core presets: the first request on a dir is cold (a video-cache miss:
+   the overlapped path, chunk trunks and the feats program), a repeat warm
+   (the pixel program); p50 of each kind is printed. The token ids of one
    more request must be identical (the graph's replay against the same
    program run op by op), and so must the results where both decode group
    by group (else the share of identical captions is printed). One replay
    runs under torch.profiler: its count of the port's kernels must equal
    the wrappers' counters' delta. The kernels' launch counts are read
-   around the graph's requests: 24 lm_head and 276 beam_attention launches
-   a request and neither fused-decode kernel. Then the same pair with
+   around each of the graph's requests: 1 prefix_projector, 24 lm_head and
+   276 beam_attention launches a request, encoder_attention 24 a cold one
+   (12 a chunk of 8 frames) and 12 a warm one, and neither fused-decode
+   kernel. Then the same pair with
    ``unified_fused_request`` off (48 lm_head launches a request): kernels,
    device ms, replay ms, p50 and captions/s of both programs side by side;
    one request with the serving presets (its first: the capture included);
@@ -103,7 +107,25 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    weights), 16 concurrent clients POST /infer, twice: every answer 200 and
    well formed, at least one batch of more than one formed by the queue and
    no request retried alone; batch sizes, client p50/p99, captions/s;
-12. bench: the port's measurement stack (``bench/``) over the default
+12. frame path: (a) the wire a packed load of the smoke's frames takes
+   (the native loader's ``last_backend`` and ``last_error``: without
+   libjpeg headers it does not build and frames decode through PIL as
+   RGB), the 4:2:0 conversion on the card bit-equal to its CPU mirror on
+   seeded planes at 224 and 223 (and the whole wire against PIL where the
+   loader builds); (b) engines with the video cache off, the overlapped
+   cold path on and off: cold p50 of each, the feats graph's capture, one
+   replay of it, of the pixel graph and of a chunk's trunk graph under
+   torch.profiler (kernels, device ms, the port's kernels equal to the
+   counters' delta), the feats program's prefix against the pixel
+   program's on one video (relative error below 5e-2) and the two
+   programs' identical id rows from one generator state; (c)
+   ``bench/roofline.measure_training_step`` on the packed wire and on RGB
+   (bf16, 4 videos x 8 frames: device, e2e and prefetched ms, bytes a
+   step); (d) ``retrieval.features.extract_features`` over the 8 videos at
+   8 frames (one batch: encoder_attention at 64 frames), the index and
+   ``evaluate_retrieval`` (recall@1 must be 1), and 2 videos' features
+   against f32 on the CPU (relative error below 5e-2);
+13. bench: the port's measurement stack (``bench/``) over the default
    engine's parameters: ``StageBench`` at batch 1 (2 warm-ups, 5
    iterations, the four report files in a temporary directory; stage
    means); ``measure_roofline`` of the default engine at batch 1 and 8 and
@@ -115,7 +137,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    72 videos x 4 beams on the card against f32 on the CPU, ``all_ok``
    required). The kernel counts are read around the phase: the default
    path's four kernels must launch;
-13. the kernel table as one JSON line (launches of each kernel's path: the
+14. the kernel table as one JSON line (launches of each kernel's path: the
    default engine's requests, each fused-decode engine's, the joint steps'
    for fused_pool), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -151,8 +173,16 @@ DEFERRED = "deferred_decode_cache_write"
 GROUPED = "unified_fused_request"          # off: the request decodes group by group
 # launches a request of the default engine (core presets, one unified loop:
 # a prefill and 23 beam steps of 12 layers) and of the grouped program
-UNIFIED_LAUNCHES = {"lm_head": 24, "beam_attention": 276}
-GROUPED_LAUNCHES = {"lm_head": 48, "beam_attention": 276}
+UNIFIED_LAUNCHES = {"prefix_projector": 1, "lm_head": 24, "beam_attention": 276}
+GROUPED_LAUNCHES = {"prefix_projector": 1, "lm_head": 48, "beam_attention": 276}
+# encoder_attention a request: 12 layers over the whole video on a warm
+# request (the pixel graph), 12 a chunk of 8 frames on a cold one (the
+# overlapped path's trunk graphs)
+CHUNK = 8
+WARM_ENCODER = 12
+# spin kernels that open a profiled window (_profiled_replay), ~5 us each
+PROFILE_SPINS, PROFILE_SPIN_CYCLES = 64, 10_000
+COLD_ENCODER = 12 * -(-NUM_FRAMES // CHUNK)
 BUCKETS = (1, 2, 4, 8)
 BENCH_WARMUP, BENCH_ITERS = 2, 5
 ROOFLINE_BATCHES = (1, 8)
@@ -270,7 +300,8 @@ def main() -> int:
         if any(launches[n] for n in SWITCHES):
             raise AssertionError(f"the default configuration launched a fused-decode kernel: "
                                  f"{launches}")
-        _require_per_request(launches, UNIFIED_LAUNCHES, TIMED_REQUESTS, "the unified request")
+        _require_per_request(pair["graph"]["per_request"], UNIFIED_LAUNCHES,
+                             "the unified request")
         latencies = pair["graph"]["latencies_s"]
         log(f"engine result: {json.dumps(pair['graph']['results'][0])}")
         report["engine"] = {"presets": "core", "frames": NUM_FRAMES, **pair}
@@ -280,7 +311,7 @@ def main() -> int:
             core_cfg.compile, **{GROUPED: False}))
         grouped = InferenceEngine(cfg, params=engine.params, seed=SEED, device="cuda")
         gpair = _graph_and_eager(f"{GROUPED}=False", grouped, dirs, TIMED_REQUESTS)
-        _require_per_request(gpair["graph"]["launches"], GROUPED_LAUNCHES, TIMED_REQUESTS,
+        _require_per_request(gpair["graph"]["per_request"], GROUPED_LAUNCHES,
                              "the grouped request")
         u, g = pair["graph"], gpair["graph"]
         same = _identical_share(u["results"], g["results"])
@@ -418,17 +449,24 @@ def main() -> int:
         # ---- 11. the HTTP server with its batch queue
         report["server"] = _server_phase(all_dirs, ckpt)
 
-        # ---- 12. the measurement stack
+        # ---- 12. the cold request's frame path, the packed wire, retrieval
+        # (before the bench phase: after its profiler capture, torch.profiler
+        # was seen to miss the first port kernel of a replay)
+        report["frame_path"] = _frame_path_phase(engine, all_dirs, Path(tmp), cpu_params,
+                                                 cpu_cfg)
+
+        # ---- 13. the measurement stack
         report["bench"] = _bench_phase(engine, all_dirs, Path(tmp))
 
-    # ---- 13. summary: launches of each kernel's path (the default engine's
+    # ---- 14. summary: launches of each kernel's path (the default engine's
     # requests; the fused-decode kernels', their engines' requests;
     # fused_pool's, the joint steps'); times and bound of the first check of
     # each kernel, its single-request (fused_pool: joint-step) shape
     by_name = {}
     for c in checks:
-        entry = by_name.setdefault(c.name, {"max_abs_err": 0.0, "first": c})
+        entry = by_name.setdefault(c.name, {"max_abs_err": 0.0, "first": c, "shapes": []})
         entry["max_abs_err"] = max(entry["max_abs_err"], c.max_abs_err)
+        entry["shapes"].append(c.shape)
     kernels = []
     for name, (route, source, replaces, _) in selfcheck.KERNELS.items():
         first = by_name[name]["first"]
@@ -436,7 +474,7 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": by_name[name]["max_abs_err"],
                         "ms": first.ms, "plain_ms": first.plain_ms, "bound_ms": first.bound_ms,
                         "bound_by": first.bound_by, "library_ms": first.library_ms,
-                        "shape": first.shape})
+                        "shape": first.shape, "shapes": by_name[name]["shapes"]})
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(report, indent=1, default=str))
@@ -452,17 +490,22 @@ def _graph_and_eager(label, engine, dirs, count):
     """Phases 4 and 5 for one configuration: ``engine`` on the request
     graph (its configuration's default) and its eager twin (the same
     configuration with ``aot_request_program`` off, the same seed and
-    parameters: it serves a request group by group, ``generate_presets``),
-    each warmed up, serving the same ``count`` requests; then the ids of
-    one more request on each (the eager engine runs the same request
-    program op by op), the host-clock time of 5 replays with the ids' copy
-    back, and one replay under torch.profiler. Fails unless the ids are
+    parameters), each warmed up, serving the same ``count`` requests
+    through ``infer``: a request whose dir is not in the engine's video
+    cache yet is cold and takes the overlapped path (chunk trunks, then
+    the feats program: graphs on the first engine, op by op on its twin),
+    a repeat is warm and takes the pixel program (its graph; the twin
+    decodes group by group, ``generate_presets``). Then the ids of one
+    more request on each (the eager engine runs the same request program
+    op by op), the host-clock time of 5 replays with the ids' copy back,
+    and one replay under torch.profiler. Fails unless the ids are
     identical, the results too where the request program decodes group by
     group as the eager path does (else their share of identical captions
     is printed: a unified loop runs other row counts, and bf16 products on
     random weights may then pick another token), and the profiler's count
     of the port's kernels in the replay equals the wrappers' counters'
-    delta. The graph's ``launches`` are its timed requests'."""
+    delta. The graph's ``launches`` are its timed requests', and
+    ``per_request`` each request's, with whether it was cold."""
     from video_caption_tpu_torch.cli.profile_request import profile_call
     from video_caption_tpu_torch.engine import InferenceEngine
 
@@ -478,14 +521,15 @@ def _graph_and_eager(label, engine, dirs, count):
         eng.warmup()
         torch.cuda.synchronize()
         warmup_s = time.perf_counter() - t0
-        lat, res, counts = _timed_requests(eng, dirs, count)
+        lat, res, counts, per_request = _timed_requests(eng, dirs, count)
         for r in res:
             _check_result(r)
         out[mode] = {"warmup_s": warmup_s, "latencies_s": lat, "p50_s": statistics.median(lat),
                      "captions_per_s": 1.0 / statistics.mean(lat),
                      "peak_added_bytes": torch.cuda.max_memory_allocated() - before,
                      "peak_bytes": torch.cuda.max_memory_allocated(),
-                     "launches": counts, "results": res}
+                     "launches": counts, "per_request": per_request, "results": res,
+                     **_cold_warm_p50(lat, per_request)}
     _, groups = engine._fused_infer_program()
     unified = engine._unified_eligible(groups, fused_program=True)
     same = _identical_share(out["graph"]["results"], out["eager"]["results"])
@@ -517,13 +561,17 @@ def _graph_and_eager(label, engine, dirs, count):
                         replay_launches=delta)
     g, e = out["graph"], out["eager"]
     log(f"engine {label}: graph {count} requests {[round(x * 1000, 1) for x in g['latencies_s']]} "
-        f"ms, p50 {g['p50_s'] * 1000:.1f} ms, {g['captions_per_s']:.2f} captions/s, capture "
+        f"ms, p50 {g['p50_s'] * 1000:.1f} ms ({_ms(g['cold_p50_s'])} cold x "
+        f"{g['cold_requests']}, {_ms(g['warm_p50_s'])} warm x {g['warm_requests']}), "
+        f"{g['captions_per_s']:.2f} captions/s, capture "
         f"{graph.capture_s:.2f} s (after a {graph.warmup_s:.2f} s run), peak "
         f"+{g['peak_added_bytes'] / 2**20:.0f} MiB; eager "
-        f"{[round(x * 1000, 1) for x in e['latencies_s']]} ms, p50 {e['p50_s'] * 1000:.1f} ms, "
+        f"{[round(x * 1000, 1) for x in e['latencies_s']]} ms, p50 {e['p50_s'] * 1000:.1f} ms "
+        f"({_ms(e['cold_p50_s'])} cold, {_ms(e['warm_p50_s'])} warm), "
         f"{e['captions_per_s']:.2f} captions/s, peak +{e['peak_added_bytes'] / 2**20:.0f} MiB")
-    log(f"engine {label}: request program {'unified' if unified else 'grouped'}, eager "
-        f"grouped; captions identical {same:.1%} over {count} requests, ids identical "
+    log(f"engine {label}: request program {'unified' if unified else 'grouped'}, eager: cold "
+        f"the same programs op by op, warm grouped; captions identical {same:.1%} over {count} "
+        f"requests, ids identical "
         f"({[a.shape for a in ids[0]]}); replay with the ids' copy {g['replay_ms']:.2f} ms "
         f"(median of 5); one replay: {prof['kernels']} kernels, {prof['device_ms']:.2f} ms "
         f"device, busy {prof['busy_share']:.1%}, the port's kernels "
@@ -532,31 +580,57 @@ def _graph_and_eager(label, engine, dirs, count):
     return {**out, "ids_identical": same_ids, "unified": unified, "identical_captions": same}
 
 
+def _ms(seconds) -> str:
+    return "none" if seconds is None else f"{seconds * 1000:.1f} ms"
+
+
 def _identical_share(a, b) -> float:
     """Share of the captions (S1-S3 of each result) two result lists agree on."""
     pairs = [(x[k], y[k]) for x, y in zip(a, b) for k in ("S1", "S2", "S3")]
     return sum(p == q for p, q in pairs) / len(pairs)
 
 
-def _require_per_request(launches, want, requests, path):
-    got = {name: launches[name] / requests for name in want}
-    if got != want:
-        raise AssertionError(f"{path} launched {got} per request, not {want}")
+def _require_per_request(per_request, want, path, cold_encoder=COLD_ENCODER):
+    """Each request launched ``want`` and encoder_attention ``cold_encoder``
+    times if it was cold (a video-cache miss: the overlapped path's chunk
+    trunks) or WARM_ENCODER times if it was warm (the pixel graph)."""
+    for i, (cold, counts) in enumerate(per_request):
+        exp = {**want, "encoder_attention": cold_encoder if cold else WARM_ENCODER}
+        got = {name: counts[name] for name in exp}
+        if got != exp:
+            raise AssertionError(f"{path}: request {i} ({'cold' if cold else 'warm'}) launched "
+                                 f"{got}, not {exp}")
+
+
+def _cold_warm_p50(latencies, per_request):
+    """p50 s of the cold and of the warm requests (None where there are none)."""
+    out = {}
+    for label, want in (("cold", True), ("warm", False)):
+        lat = [t for t, (cold, _) in zip(latencies, per_request) if cold == want]
+        out[f"{label}_p50_s"] = statistics.median(lat) if lat else None
+        out[f"{label}_requests"] = len(lat)
+    return out
 
 
 def _timed_requests(engine, dirs, count):
-    """(latencies s, results, launches of every kernel) of ``count``
-    sequential requests; the counts are set to 0 just before and read just
-    after."""
+    """(latencies s, results, launches of every kernel, per request (cold,
+    its launches)) of ``count`` sequential requests through
+    ``engine.infer``; a request is cold when its dir is not in the video
+    cache before it (so it takes the overlapped path). The counts are set
+    to 0 just before and read just after."""
     _reset_kernel_counts()
-    latencies, results = [], []
+    latencies, results, per_request = [], [], []
     for i in range(count):
+        d = dirs[i % len(dirs)]
+        cold = engine._video_cache_get(d)[1] is None
+        before = _kernel_counts()
         t0 = time.perf_counter()
-        res = engine.infer(dirs[i % len(dirs)])
+        res = engine.infer(d)
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
         results.append(res.to_api_dict())
-    return latencies, results, _kernel_counts()
+        per_request.append((cold, {n: c - before[n] for n, c in _kernel_counts().items()}))
+    return latencies, results, _kernel_counts(), per_request
 
 
 def _kernel_counts():
@@ -899,8 +973,7 @@ def _int8_config(engine, int8, dirs, default_graph, emb_gpu, emb_cpu) -> dict:
     wbytes = (_block_weight_bytes(blocks), _block_weight_bytes(engine.params["decoder"]["blocks"]))
     pair = _graph_and_eager("quantize_decoder_int8", int8, dirs, FUSED_REQUESTS)
     _require_launches(pair["graph"]["launches"], selfcheck.DEFAULT_PATH, "the int8 path")
-    _require_per_request(pair["graph"]["launches"], UNIFIED_LAUNCHES, FUSED_REQUESTS,
-                         "the int8 request")
+    _require_per_request(pair["graph"]["per_request"], UNIFIED_LAUNCHES, "the int8 request")
     v = engine.model_cfg.gpt2.vocab_size
     with torch.inference_mode():
         got = _beam_decode_logits(int8.params["decoder"], int8.model_cfg.gpt2, emb_gpu)
@@ -952,18 +1025,23 @@ def _early_stop_config(engine, core_cfg, dirs) -> dict:
     from video_caption_tpu_torch.ops import selfcheck
 
     engines = {}
+    # the full-length engine decodes group by group, as early stop does
+    # (the unified loop would run other row counts)
     for name, kw in (("early_stop", {"early_stop_decode": True}),
-                     ("full", {"aot_request_program": False})):
+                     ("full", {"aot_request_program": False, GROUPED: False})):
         engines[name] = InferenceEngine(dataclasses.replace(core_cfg, compile=dataclasses.replace(
             core_cfg.compile, **kw)), params=engine.params, seed=SEED, device="cuda")
     es = engines["early_stop"]
-    if es._serves_on_program(es.load_video(dirs[0])):
+    if es._serves_on_program(torch.zeros((1, NUM_FRAMES, 3, IMAGE_SIZE, IMAGE_SIZE),
+                                         dtype=torch.uint8, device="cuda")):
         raise AssertionError("an early-stop request took the captured graph")
     runs = {}
     for name, eng in engines.items():
         eng.warmup()
         runs[name] = _timed_requests(eng, dirs, FUSED_REQUESTS)
     _require_launches(runs["early_stop"][2], selfcheck.DEFAULT_PATH, "the early-stop path")
+    if not all(cold for r in runs.values() for cold, _ in r[3]):
+        raise AssertionError("an early-stop comparison request was not cold")
     if runs["early_stop"][1] != runs["full"][1]:
         raise AssertionError(f"early stop changed the results: {runs['early_stop'][1]} vs "
                              f"{runs['full'][1]}")
@@ -1440,6 +1518,227 @@ def _bench_phase(engine, dirs, root: Path) -> dict:
     _require_launches(launches, selfcheck.DEFAULT_PATH, "the bench phase")
     out["launches"] = launches
     return out
+
+
+def _frame_path_phase(engine, dirs, root: Path, cpu_params, cpu_cfg) -> dict:
+    """Phase 12: the cold request's frame path, the packed training wire and
+    the retrieval entry points, each driven with the counts set to 0 just
+    before it and read just after."""
+    import os
+
+    import numpy as np
+
+    from video_caption_tpu_torch.bench.roofline import measure_training_step
+    from video_caption_tpu_torch.engine import InferenceEngine
+    from video_caption_tpu_torch.models import caption_model as cm
+    from video_caption_tpu_torch.native import loader
+    from video_caption_tpu_torch.ops import selfcheck
+    from video_caption_tpu_torch.preprocessing import frame_loader
+    from video_caption_tpu_torch.preprocessing.yuv420 import (packed_plane_len,
+                                                              yuv420_packed_to_rgb_chw,
+                                                              yuv420_packed_to_rgb_chw_np)
+    from video_caption_tpu_torch.retrieval import eval_retrieval, features, index
+
+    out = {}
+    # (a) the wire: which one a packed load takes here, and the conversion
+    # on the card against its CPU mirror, bit for bit
+    kind, packed = frame_loader.load_video_packed(dirs[0], NUM_FRAMES, IMAGE_SIZE)
+    wire = {"kind": kind, "last_backend": loader.last_backend,
+            "last_error": (loader.last_error or "")[-300:] or None}
+    for size in (IMAGE_SIZE, 223):
+        planes = np.random.RandomState(size).randint(
+            0, 256, (NUM_FRAMES, packed_plane_len(size)), dtype=np.uint8)
+        planes[0], planes[1] = 0, 255                    # the clip at both ends
+        dev = torch.from_numpy(planes).cuda()
+        same = torch.equal(yuv420_packed_to_rgb_chw(dev, size).cpu(),
+                           torch.from_numpy(yuv420_packed_to_rgb_chw_np(planes, size)))
+        ms = selfcheck.median_ms(lambda: yuv420_packed_to_rgb_chw(dev, size))
+        wire[f"conversion_{size}"] = {"bit_equal": same, "device_ms": ms}
+        if not same:
+            raise AssertionError(f"the 4:2:0 conversion at {size} differs on the card from the "
+                                 f"CPU mirror")
+    if kind == "yuv420":
+        picks = frame_loader.sample_frame_paths(frame_loader.list_frames(dirs[0]), NUM_FRAMES)
+        want = np.stack([frame_loader.load_image_u8(f, IMAGE_SIZE) for f in picks])
+        got = yuv420_packed_to_rgb_chw(torch.from_numpy(packed).cuda(), IMAGE_SIZE)
+        wire["whole_wire_bit_equal_to_pil"] = bool(np.array_equal(got.cpu().numpy(), want))
+        if not wire["whole_wire_bit_equal_to_pil"]:
+            raise AssertionError("the 4:2:0 wire differs from PIL on the card")
+    log(f"frame path: a packed load took the {kind} wire (native loader: last_backend "
+        f"{wire['last_backend']}, last_error {wire['last_error']}); 4:2:0 conversion of "
+        f"[{NUM_FRAMES}, packed_plane_len] on the card bit-equal to the CPU mirror at "
+        f"{IMAGE_SIZE} ({wire[f'conversion_{IMAGE_SIZE}']['device_ms']:.4f} ms) and 223 "
+        f"({wire['conversion_223']['device_ms']:.4f} ms); whole wire against PIL: "
+        f"{wire.get('whole_wire_bit_equal_to_pil', 'not run (no native loader)')}")
+    out["wire"] = wire
+
+    # (b) cold requests (the video cache off) with the overlapped path on
+    # and off, and the two request programs on one video
+    saved = os.environ.get("VIDEO_CAPTION_VIDEO_CACHE_MB")
+    os.environ["VIDEO_CAPTION_VIDEO_CACHE_MB"] = "0"
+    try:
+        cold = {on: InferenceEngine(dataclasses.replace(engine.config, compile=dataclasses.replace(
+            engine.config.compile, overlap_single_upload=on)), params=engine.params, seed=SEED,
+            device="cuda") for on in (True, False)}
+    finally:
+        if saved is None:
+            os.environ.pop("VIDEO_CAPTION_VIDEO_CACHE_MB")
+        else:
+            os.environ["VIDEO_CAPTION_VIDEO_CACHE_MB"] = saved
+    requests = {}
+    for on, eng in cold.items():
+        eng.warmup()
+        lat, res, _, per_request = _timed_requests(eng, dirs[:3], TIMED_REQUESTS)
+        for r in res:
+            _check_result(r)
+        if not all(c for c, _ in per_request):
+            raise AssertionError("a request with the video cache off was not cold")
+        _require_per_request(per_request, UNIFIED_LAUNCHES, f"overlap_single_upload={on}",
+                             cold_encoder=COLD_ENCODER if on else WARM_ENCODER)
+        requests[on] = {"latencies_s": lat, "p50_s": statistics.median(lat), "results": res}
+    same = _identical_share(requests[True]["results"], requests[False]["results"])
+    eng = cold[True]
+    feats = eng._load_feats_overlapped(dirs[0])
+    video = eng.load_video(dirs[0])
+    fgraph, pgraph = eng.feats_graph(feats), eng.request_graph(video)
+    trunk_key = next(k for k in eng._trunk_graphs if k[2] == CHUNK)
+    tgraph = eng._trunk_graphs[trunk_key]
+    chunk = tgraph.static_input.clone()
+    profiles = {}
+    for name, call in (("feats", lambda: fgraph.replay(feats)),
+                       ("pixel", lambda: pgraph.replay(video)),
+                       ("trunk", lambda: tgraph.replay(chunk))):
+        prof, delta, lost = _profiled_replay(f"the {name} graph", call)
+        profiles[name] = {"kernels": prof["kernels"], "device_ms": prof["device_ms"],
+                          "launches": delta, "profiler_lost_spins": lost}
+    with torch.inference_mode():
+        pre_feats = cm.frames_to_prefix(eng.params, feats, eng.model_cfg)
+        pre_pixels = eng.compute_prefix(video)
+    prefix_err = rel_err(pre_feats, pre_pixels)
+    # the two programs' ids from one generator state
+    state = eng.generator.get_state()
+    ids_feats = eng._collect_ids(eng._dispatch_feats(feats))
+    eng.generator.set_state(state)
+    ids_pixels = eng.request_ids(video)
+    rows = [(a == b).all(axis=1) for a, b in zip(ids_feats, ids_pixels)]
+    same_rows = float(sum(r.sum() for r in rows)) / sum(r.size for r in rows)
+    f, px, t = profiles["feats"], profiles["pixel"], profiles["trunk"]
+    log(f"frame path: cold requests (cache off), p50 {requests[True]['p50_s'] * 1000:.1f} ms "
+        f"with overlap_single_upload {[round(x * 1000, 1) for x in requests[True]['latencies_s']]}"
+        f", {requests[False]['p50_s'] * 1000:.1f} ms without "
+        f"{[round(x * 1000, 1) for x in requests[False]['latencies_s']]}; captions identical "
+        f"{same:.1%}; encoder_attention {COLD_ENCODER} launches a cold request with the overlap, "
+        f"{WARM_ENCODER} without")
+    log(f"frame path: feats graph [1,{NUM_FRAMES},{feats.shape[-1]}] capture "
+        f"{fgraph.capture_s:.2f} s (after a {fgraph.warmup_s:.2f} s run), one replay "
+        f"{f['kernels']} kernels, {f['device_ms']:.2f} ms device, "
+        f"port kernels {f['launches']}; pixel graph {px['kernels']} kernels, "
+        f"{px['device_ms']:.2f} ms; trunk graph {trunk_key} {t['kernels']} kernels, "
+        f"{t['device_ms']:.2f} ms (capture {tgraph.capture_s:.2f} s), port kernels "
+        f"{t['launches']}; prefix feats vs pixel program rel err {prefix_err:.3e} (bound "
+        f"{REL_TOL:g}); id rows identical {same_rows:.1%}; spin records the profiler lost "
+        f"{[profiles[n]['profiler_lost_spins'] for n in ('feats', 'pixel', 'trunk')]} of "
+        f"{PROFILE_SPINS} (feats, pixel, trunk)")
+    if not (prefix_err < REL_TOL and torch.isfinite(pre_feats).all()):
+        raise AssertionError("the feats program's prefix disagrees with the pixel program's")
+    out["requests"] = {"cold_p50_s": {"overlap": requests[True]["p50_s"],
+                                      "no_overlap": requests[False]["p50_s"]},
+                       "latencies_s": {"overlap": requests[True]["latencies_s"],
+                                       "no_overlap": requests[False]["latencies_s"]},
+                       "identical_captions": same}
+    out["graphs"] = {"feats_capture_s": fgraph.capture_s, "trunk_key": list(trunk_key),
+                     "trunk_capture_s": tgraph.capture_s, **profiles}
+    out["programs"] = {"prefix_rel_err": prefix_err, "identical_id_rows": same_rows}
+
+    # (c) the mapper step on the packed wire and on RGB, in turns (packed,
+    # RGB, RGB, packed) so that neither has the first run alone
+    _reset_kernel_counts()
+    train = {True: [], False: []}
+    for wire_on in (True, False, False, True):
+        train[wire_on].append(measure_training_step(
+            batch=TRAIN_BATCH, num_frames=TRAIN_FRAMES, trials=3, yuv420_wire=wire_on,
+            dtype="bfloat16", report_path=None))
+    launches = _kernel_counts()
+    _require_launches(launches, selfcheck.MAPPER_TRAINING_PATH, "measure_training_step")
+    keys = ("device_ms", "e2e_ms", "e2e_prefetch_ms")
+    for r in train[True] + train[False]:
+        if not all(math.isfinite(r[k]) and r[k] > 0 for k in keys):
+            raise AssertionError(f"measure_training_step: {r}")
+
+    def runs(wire_on):
+        rs = train[wire_on]
+        return ", ".join(f"{k} {' / '.join(f'{r[k]:.2f}' for r in rs)}" for k in keys) + \
+            f" ms, {rs[0]['wire_mb_per_step']:.2f} MB a step"
+
+    log(f"frame path: mapper step (bf16, {TRAIN_BATCH} videos x {TRAIN_FRAMES} frames, runs 1 and "
+        f"4 packed, 2 and 3 RGB) on the packed wire: {runs(True)}; RGB: {runs(False)}; launches "
+        f"{launches}")
+    out["training"] = {"packed": train[True], "rgb": train[False], "launches": launches}
+
+    # (d) retrieval over the smoke's dirs: one batch of 8 videos x 8 frames
+    ann = root / "retrieval_annotations.json"
+    ann.write_text(json.dumps([{"video_id": f"video{v}", "frames_dir": d,
+                                "captions": [CAPTIONS[v % len(CAPTIONS)]]}
+                               for v, d in enumerate(dirs)]))
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    feats_, ids = features.extract_features(str(ann), str(root / "features"), num_frames=8,
+                                            image_size=IMAGE_SIZE, batch_size=8, device="cuda")
+    extract_s = time.perf_counter() - t0
+    launches = _kernel_counts()
+    idx = index.build_index(feats_, ids, str(root / "index"))
+    metrics = eval_retrieval.evaluate_retrieval(feats_, ids, idx, ids)
+    with torch.inference_mode():
+        cpu, _ = features.extract_features(
+            str(ann), str(root / "features_cpu"), num_frames=8, image_size=IMAGE_SIZE,
+            batch_size=2, limit=2, device="cpu",
+            encoder=lambda v: cm.encode_video(cpu_params, v, cpu_cfg))
+    err = rel_err(torch.from_numpy(feats_[:2]), torch.from_numpy(cpu))
+    want_launches = 12 * -(-len(dirs) // 8)
+    log(f"frame path: retrieval: extract_features of {len(ids)} videos in {extract_s:.2f} s "
+        f"(the checkpoint's or seeded weights, bf16), features {feats_.shape}, "
+        f"encoder_attention {launches['encoder_attention']} launches (at [64,197,2304]); "
+        f"{idx.backend} index, {json.dumps(metrics)}; 2 videos' features vs f32 on the CPU rel "
+        f"err {err:.3e} (bound {REL_TOL:g})")
+    if not (np.isfinite(feats_).all() and feats_.shape == (len(dirs), 256)
+            and metrics["recall@1"] == 1.0 and err < REL_TOL
+            and launches["encoder_attention"] == want_launches):
+        raise AssertionError("retrieval over the smoke's videos is wrong")
+    out["retrieval"] = {"extract_s": extract_s, "metrics": metrics, "rel_err_vs_cpu": err,
+                        "launches": launches, "backend": idx.backend}
+    return out
+
+
+def _profiled_replay(label, call):
+    """(profile, the counters' delta, spin records the profiler lost) of
+    one call under torch.profiler, behind PROFILE_SPINS spin kernels that
+    open the window. Late in a run of this script the profiler lost the
+    first 16 kernel records of a window (the feats graph's first 16
+    kernels, its prefix_projector among them; with one 2 ms spin first, the
+    spin and 15 of them), where early in a process it lost none: the spins
+    take that loss, and the ones it kept are taken out of the kernel count
+    and the device ms. Fails unless at least one spin was kept (so the
+    call's records are whole) and the profiler's count of the port's
+    kernels equals the wrappers' counters' delta."""
+    from video_caption_tpu_torch.cli.profile_request import profile_call
+
+    def opened():
+        for _ in range(PROFILE_SPINS):
+            torch.cuda._sleep(PROFILE_SPIN_CYCLES)
+        call()
+
+    before = _kernel_counts()
+    prof = profile_call(opened, count=("spin_kernel",))
+    delta = {n: c - before[n] for n, c in _kernel_counts().items() if c != before[n]}
+    spins = prof["counted"]["spin_kernel"]
+    kept = spins["launches"]
+    if prof["wrapper_launches"] != delta or not kept:
+        raise AssertionError(f"{label}: the profiler saw {prof['wrapper_launches']} launches in "
+                             f"one replay ({prof['kernels']} kernels, {prof['device_ms']:.2f} ms, "
+                             f"{kept} of {PROFILE_SPINS} spins), the counters {delta}")
+    return {**prof, "kernels": prof["kernels"] - kept,
+            "device_ms": prof["device_ms"] - spins["ms"]}, delta, \
+        PROFILE_SPINS - kept
 
 
 def _leaves(tree):

@@ -170,9 +170,12 @@ def test_program_and_eager_engines_give_the_same_results(tiny_cfg, port_params, 
     """(d) Two engines from one seed, ``aot_request_program`` on and off,
     over three consecutive requests (the sampled caption included): the same
     ``to_api_dict()``. The engine with it on serves through the program,
-    the other through ``generate_presets``."""
-    on = _engine(tiny_cfg, port_params, seed=4)
-    off = _engine(tiny_cfg, port_params, seed=4, aot_request_program=False)
+    the other through ``generate_presets``. The overlapped cold path is off
+    in both, so every request takes the pixel path (its feats program:
+    tests/test_torch_overlap.py)."""
+    on = _engine(tiny_cfg, port_params, seed=4, overlap_single_upload=False)
+    off = _engine(tiny_cfg, port_params, seed=4, aot_request_program=False,
+                  overlap_single_upload=False)
     calls = {"program": 0, "eager": 0}
     program, _ = on._fused_infer_program()
 

@@ -34,6 +34,7 @@ from video_caption_tpu_torch.engine import InferenceEngine
 from video_caption_tpu_torch.models import gpt2 as g2
 from video_caption_tpu_torch.models import vit as vt
 from video_caption_tpu_torch.models.convert import params_from_jax_numpy
+from video_caption_tpu_torch.preprocessing.yuv420 import packed_plane_len
 from video_caption_tpu_torch.server.services import batching_queue, model_registry
 
 
@@ -198,14 +199,21 @@ def test_measure_training_step_on_cpu(tiny_cfg, tmp_path):
     got = roofline.measure_training_step(batch=2, num_frames=2, trials=2, device="cpu",
                                          model_cfg=port_cfg(tiny_cfg), report_path=str(path))
     assert got["xla_cost_gflops"] is None and got["device_kind"] == "cpu"
-    assert "pct_peak_flops" not in got and got["yuv420_wire"] is False
+    # the packed 4:2:0 wire by default, as the JAX package's
+    assert "pct_peak_flops" not in got and got["yuv420_wire"] is True
     for key in ("device_ms", "e2e_ms", "e2e_prefetch_ms", "gflops", "tflops_per_sec"):
         assert got[key] > 0, key
     assert got["gflops"] == pytest.approx(
         roofline.training_step_flops(port_cfg(tiny_cfg), 2, 2, 24) / 1e9)
     assert json.loads(path.read_text()) == got
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        roofline.measure_training_step(yuv420_wire=True, device="cpu")
+    rgb = roofline.measure_training_step(batch=2, num_frames=2, trials=2, device="cpu",
+                                         model_cfg=port_cfg(tiny_cfg), yuv420_wire=False,
+                                         report_path=None)
+    # planes are 1.5 bytes a pixel against RGB's 3; the captions' bytes are equal
+    planes, pixels = 2 * 2 * packed_plane_len(32), 2 * 2 * 3 * 32 * 32
+    assert rgb["yuv420_wire"] is False
+    assert (rgb["wire_mb_per_step"] - got["wire_mb_per_step"]) * 1e6 == pytest.approx(
+        pixels - planes)
 
 
 # ---- benchmark.py ----------------------------------------------------------

@@ -363,8 +363,8 @@ def test_engine_logs_the_switches_it_does_not_honour(tiny_cfg, port_params, capl
     with caplog.at_level("INFO", logger="video_caption_tpu_torch.engine"):
         _engine(tiny_cfg, port_params, early_stop_decode=True)
     text = " ".join(r.message for r in caplog.records)
-    assert "yuv420_wire" in text and "item 6" in text
-    assert "overlap_single_upload" in text and "item 4" in text
+    # the 4:2:0 wire and the overlapped upload are honoured now: no line
+    assert "yuv420_wire" not in text and "overlap_single_upload" not in text
     assert "early_stop_decode" in text and "eagerly" in text
 
 

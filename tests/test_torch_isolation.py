@@ -3,7 +3,9 @@ fastapi, which the card's machine lacks, nor sacrebleu or NLTK, which it
 lacks too), and its own copies
 of the reference's JAX-free modules (config, datatypes, tokenizer, presets,
 post-processing, frame loading, the training data loader, the benchmark's
-report writers, BLEU scoring) behave as the originals do."""
+report writers, BLEU scoring, the retrieval index) behave as the originals
+do. The 4:2:0 conversion (preprocessing/yuv420.py) is a rewrite in torch,
+held against the original in tests/test_torch_yuv420.py."""
 import dataclasses
 import json
 import re
@@ -54,7 +56,9 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         "             'bench.report', 'bench.benchmark', 'bench.profile', 'bench.probes',\n"
         "             'bench.roofline', 'bench.serving_load', 'bench.accuracy_alignment',\n"
         "             'bench.driver', 'cli.check_env', 'models.quantize', 'eval.bleu',\n"
-        "             'eval.eval_compare', 'eval.ablate_decode'):\n"
+        "             'eval.eval_compare', 'eval.ablate_decode', 'preprocessing.yuv420',\n"
+        "             'retrieval.index', 'retrieval.features', 'retrieval.eval_retrieval',\n"
+        "             'retrieval.query_video', 'cli.caption_video'):\n"
         "    assert p.__name__ + '.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'video_caption_tpu', 'pydantic', 'fastapi', 'uvicorn', 'starlette', 'sacrebleu', "

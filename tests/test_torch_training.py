@@ -563,3 +563,89 @@ def test_train_decoder_only_cli_runs_on_the_cpu(tmp_path, monkeypatch):
     assert len(losses) == 5 and all(np.isfinite(losses))    # the second epoch ran
     payload = torch.load(tmp_path / "lmck" / "model.pt", weights_only=True)
     assert payload["params"]["wte"].shape == (tiny.vocab_size, 32)
+
+
+# ---- the packed 4:2:0 training wire ----------------------------------------
+
+def _packed_batch(seed, b=2, t=2, length=6, vocab=128, size=32):
+    """A caption batch whose video is packed 4:2:0 planes [B,T,plane_len],
+    with a frame of zeros and one of 255s (the conversion's clip)."""
+    from video_caption_tpu_torch.preprocessing.yuv420 import packed_plane_len
+
+    rng = np.random.RandomState(seed)
+    planes = rng.randint(0, 256, (b, t, packed_plane_len(size)), dtype=np.uint8)
+    planes[0, 0], planes[-1, -1] = 0, 255
+    batch = _caption_batch(b, length, seed, vocab)
+    return {**batch, "video": planes}
+
+
+def test_mapper_trainer_three_steps_on_the_packed_wire(tiny_cfg, tiny_params, tmp_path):
+    """Three mapper steps on packed planes: the losses equal (exactly) those
+    of the same steps on their RGB pixels, and are within 1e-5 of the JAX
+    trainer's on the same planes."""
+    from video_caption_tpu_torch.preprocessing.yuv420 import yuv420_packed_to_rgb_chw_np
+
+    batches = [_packed_batch(seed) for seed in (31, 32, 33)]
+    rgb = [{**b, "video": yuv420_packed_to_rgb_chw_np(b["video"].reshape(4, -1), 32).reshape(
+        2, 2, 3, 32, 32)} for b in batches]
+    cfg = _caption_cfg(tiny_cfg)
+    losses = {}
+    for wire, data in (("packed", batches), ("rgb", rgb)):
+        tr = MapperTrainer(cfg, params_from_jax_numpy(_np(tiny_params), cfg, "cpu"),
+                           TrainArgs(out_dir=str(tmp_path / wire), max_steps=3))
+        losses[wire] = [tr.run_step(b) for b in data]
+    assert losses["packed"] == losses["rgb"]
+    jtr = jmt.MapperTrainer(tiny_cfg, tiny_params,
+                            jmt.TrainArgs(out_dir=str(tmp_path / "jax"), max_steps=3),
+                            mesh=make_mesh(JMeshConfig(data=1, model=1), jax.devices()[:1]))
+    np.testing.assert_allclose(losses["packed"], [jtr.run_step(b) for b in batches], rtol=1e-5)
+
+
+def _wire_annotations(tmp_path, subsamplings):
+    """One video per entry of 3 frames of 32x32 JPEG; None writes 4:2:0,
+    0 writes 4:4:4."""
+    import json
+
+    from PIL import Image
+
+    rng = np.random.RandomState(6)
+    records = []
+    for v, sub in enumerate(subsamplings):
+        d = tmp_path / f"wire{v}"
+        d.mkdir()
+        for i in range(3):
+            kw = {} if sub is None else {"subsampling": sub}
+            Image.fromarray(rng.randint(0, 255, (32, 32, 3), np.uint8)).save(
+                d / f"frame_{i:05d}.jpg", quality=90, **kw)
+        records.append({"video_id": f"v{v}", "frames_dir": str(d), "captions": ["a cat sits"]})
+    ann = tmp_path / "ann.json"
+    ann.write_text(json.dumps(records))
+    return ann
+
+
+@pytest.mark.parametrize("subsamplings,packed", [((None, None), True), ((None, 0), False)])
+def test_data_loader_ships_the_packed_wire(tmp_path, subsamplings, packed):
+    """``yuv420_wire``: 4:2:0 videos ship as planes [B,T,plane_len]; a batch
+    that mixes them with a 4:4:4 video ships all as RGB, converted on the
+    host bit-exactly. The same batches as the JAX package's loader."""
+    from video_caption_tpu.data import data_loader as jdata
+    from video_caption_tpu.decode.tokenizer import get_tokenizer as jget_tokenizer
+    from video_caption_tpu_torch.data import data_loader
+    from video_caption_tpu_torch.native import loader
+    from video_caption_tpu_torch.preprocessing.yuv420 import packed_plane_len
+
+    if not loader.native_available():
+        pytest.skip(f"the port's native loader does not build here: {loader.last_error}")
+    ann = _wire_annotations(tmp_path, subsamplings)
+    kw = dict(batch_size=2, max_len=8, num_frame=4, image_size=32, yuv420_wire=True,
+              shuffle=False)
+    (got,) = list(data_loader.build_dataloader(str(ann), get_tokenizer(), **kw))
+    (want,) = list(jdata.build_dataloader(str(ann), jget_tokenizer(), **kw))
+    shape = (2, 4, packed_plane_len(32)) if packed else (2, 4, 3, 32, 32)
+    assert got["video"].shape == shape and got["video"].dtype == np.uint8
+    for key in ("video", "caption_ids", "attention_mask"):
+        np.testing.assert_array_equal(got[key], want[key])
+    if not packed:
+        rgb = data_loader.build_dataloader(str(ann), get_tokenizer(), **{
+            **kw, "yuv420_wire": False, "uint8_pixels": True})
+        np.testing.assert_array_equal(got["video"], next(iter(rgb))["video"])

@@ -314,12 +314,15 @@ def measure_roofline(engine, batch: int = 16, trials: int = 5,
 
 def measure_training_step(
     batch: int = 8, num_frames: int = 8, trials: int = 10,
-    yuv420_wire: bool = False, unfreeze_last_gpt2: int = 0,
+    yuv420_wire: bool = True, unfreeze_last_gpt2: int = 0,
     report_path: Optional[str] = "reports/torch/roofline_training.json",
     dtype: str = "float32", device="cuda", model_cfg=None,
 ) -> Dict[str, Any]:
     """Training-step roofline of the mapper trainer (frozen ViT-B/16 +
     mapper + GPT-2 teacher forcing; ``model_cfg`` another geometry).
+    ``yuv420_wire`` (on, as in the JAX package) ships the batch as packed
+    4:2:0 planes [B,T,plane_len] that the step converts on the device; off,
+    uint8 RGB [B,T,3,S,S].
 
     ``device_ms``: ``amortize`` = 4 steps back to back on a batch already on
     the device, between two CUDA events (the step is eager: the interval
@@ -332,11 +335,9 @@ def measure_training_step(
     from video_caption_tpu_torch.config import default_inference_config
     from video_caption_tpu_torch.engine import model_config_from_inference
     from video_caption_tpu_torch.models import caption_model as cm
+    from video_caption_tpu_torch.preprocessing.yuv420 import packed_plane_len
     from video_caption_tpu_torch.training.mapper_trainer import MapperTrainer, TrainArgs
 
-    if yuv420_wire:
-        raise NotImplementedError("the packed 4:2:0 wire is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but no CUDA device is available")
@@ -349,8 +350,12 @@ def measure_training_step(
     params = cm.init_caption_model(0, mc, device)
     rng = np.random.RandomState(0)
     size = mc.vit.image_size
+    if yuv420_wire:
+        vid = rng.randint(0, 255, (batch, num_frames, packed_plane_len(size)), np.uint8)
+    else:
+        vid = rng.randint(0, 255, (batch, num_frames, 3, size, size), np.uint8)
     host_batch = {
-        "video": rng.randint(0, 255, (batch, num_frames, 3, size, size), np.uint8),
+        "video": vid,
         "caption_ids": rng.randint(0, min(50000, mc.gpt2.vocab_size), (batch, 24)).astype(np.int32),
         "attention_mask": np.ones((batch, 24), np.int32),
     }

@@ -157,10 +157,12 @@ def device_profile(engine, frames_dir: str, trace: Path = None) -> dict:
     return profile_call(lambda: engine.infer(frames_dir), trace)
 
 
-def profile_call(fn, trace: Path = None) -> dict:
+def profile_call(fn, trace: Path = None, count: tuple = ()) -> dict:
     """Kernel count, device time, busy share (the union of kernel intervals
     over the profiled span) and time by kernel name of one synchronised
-    call of ``fn`` under torch.profiler."""
+    call of ``fn`` under torch.profiler; ``counted`` gives, for each
+    substring in ``count``, the launches and ms of the kernels whose names
+    hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -196,7 +198,10 @@ def profile_call(fn, trace: Path = None) -> dict:
             "busy_share": busy / wall_us if wall_us else 0.0,
             "top": [{"name": n[:90], "launches": c, "ms": t / 1000} for n, (c, t) in ranked[:12]],
             "port_kernels": [{"name": n[:90], "launches": c, "ms": t / 1000} for n, (c, t) in own],
-            "wrapper_launches": dict(wrappers)}
+            "wrapper_launches": dict(wrappers),
+            "counted": {sub: {"launches": sum(c for n, (c, _) in ranked if sub in n),
+                              "ms": sum(t for n, (_, t) in ranked if sub in n) / 1000}
+                        for sub in count}}
 
 
 def port_kernel(name: str):

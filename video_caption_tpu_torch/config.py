@@ -6,11 +6,10 @@ The port's own copy of the JAX package's config module (same fields,
 ``preset1..3``, ``prompt1..3``, ``compile.dtype``,
 ``compile.use_pallas_decode_attention``, ``compile.use_pallas_decode_layer``,
 ``compile.deferred_decode_cache_write``, ``compile.quantize_decoder_int8``,
-``compile.early_stop_decode`` and ``compile.sample_split_cache``; it raises
-for ``mesh.num_devices > 1``, logs that it does not honour
-``compile.yuv420_wire`` and ``compile.overlap_single_upload`` yet, and
-ignores the schedule-only knobs of the TPU build, whose tokens are identical
-either way.
+``compile.early_stop_decode``, ``compile.sample_split_cache``,
+``compile.yuv420_wire`` and ``compile.overlap_single_upload``; it raises for
+``mesh.num_devices > 1`` and ignores the schedule-only knobs of the TPU
+build, whose tokens are identical either way.
 
 Mirrors the reference's config design (backend_config.py env parsing ->
 server/settings.py defaults -> core/config.py frozen dataclasses) with the

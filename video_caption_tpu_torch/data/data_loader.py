@@ -1,9 +1,8 @@
 """Video-caption dataset + dataloader (the port's own copy of
 video_caption_tpu/data/data_loader.py: the same samples, batches, shuffle
 order and prefetch thread for the same seed and annotations; only its
-imports point at the port's modules, and the 4:2:0 wire, whose device-side
-decode is not ported yet (ROADMAP Queue 1 item 6), raises). Batches are host
-numpy; the trainers move them to the device.
+imports point at the port's modules). Batches are host numpy; the trainers
+move them to the device.
 
 The reference imports ``src/data/data_loader.py`` everywhere but never
 committed it (SURVEY critical fact #1); this module reconstructs the
@@ -68,9 +67,6 @@ class MSVDDataset:
         uint8_pixels: bool = False,    # ship raw pixels, normalize on device
         yuv420_wire: bool = False,     # ship raw 4:2:0 planes (1.5 B/px)
     ):
-        if yuv420_wire:
-            raise NotImplementedError("the 4:2:0 training wire is not ported yet "
-                                      "(ROADMAP Queue 1 item 6)")
         self.num_frames = num_frames
         self.image_size = image_size
         self.uint8_pixels = uint8_pixels
@@ -103,6 +99,18 @@ class MSVDDataset:
     def load_video(self, frames_dir: str) -> np.ndarray:
         files = list_frames(frames_dir)
         picks = [files[i] for i in _sample_indices(len(files), self.num_frames)]
+        if self.yuv420_wire:
+            # the serving engine's wire: canonical 4:2:0 JPEGs ship as raw
+            # decoded planes [T, plane_len] (1.5 B/px, half the uint8 RGB
+            # bytes) and the step finishes the decode on the device
+            # (models/caption_model.encode_video -> preprocessing/yuv420.py).
+            # Other videos ship RGB; DataLoader._make_batch unifies a mixed
+            # batch.
+            from video_caption_tpu_torch.native.loader import load_frames_native_yuv420
+
+            packed = load_frames_native_yuv420(picks, self.image_size)
+            if packed is not None:
+                return packed
         if self.uint8_pixels or self.yuv420_wire:
             from video_caption_tpu_torch.preprocessing.frame_loader import load_image_u8
 
@@ -160,6 +168,15 @@ class DataLoader:
         items = [self.dataset[i] for i in indices]
         ids_masks = [self._tokenize(it["caption"]) for it in items]
         videos = [it["video"] for it in items]
+        if self.dataset.yuv420_wire and any(v.ndim == 4 for v in videos) and \
+                any(v.ndim == 2 for v in videos):
+            # mixed formats: RGB through the bit-exact host conversion, so a
+            # batch has one shape (all packed, or all RGB)
+            from video_caption_tpu_torch.preprocessing.yuv420 import (
+                yuv420_packed_to_rgb_chw_np)
+
+            videos = [v if v.ndim == 4 else yuv420_packed_to_rgb_chw_np(v, self.dataset.image_size)
+                      for v in videos]
         video = np.stack(videos)
         if not (self.dataset.uint8_pixels or self.dataset.yuv420_wire):
             video = video.astype(np.float32)

@@ -2,11 +2,12 @@
 (counterpart of video_caption_tpu/engine.py).
 
 One request runs: frame load (the C++ libjpeg loader, or PIL where the
-native library is unavailable) -> one upload of uint8 pixels -> ViT-B/16 ->
-prefix norm -> mapper -> one grouped decode per distinct policy (presets
-with the same policy decode as one left-padded batch) -> text cleaning ->
-best-of-3. Every kernel of that path is a hand-written CUDA kernel on the
-GPU (ops/), and its plain PyTorch version on the CPU. The compile switches
+native library is unavailable) -> upload of uint8 pixels, or of raw 4:2:0
+planes that the device turns into the same pixels -> ViT-B/16 -> prefix
+norm -> mapper -> one grouped decode per distinct policy (presets with the
+same policy decode as one left-padded batch) -> text cleaning -> best-of-3.
+Every kernel of that path is a hand-written CUDA kernel on the GPU (ops/),
+and its plain PyTorch version on the CPU. The compile switches
 ``use_pallas_decode_attention`` and ``use_pallas_decode_layer`` (off by
 default, as in the JAX package) put the greedy/sampled decode steps through
 the decode-attention or the whole-step decode-layer kernel;
@@ -48,10 +49,24 @@ On CUDA with ``aot_request_program`` each batch size's program is a graph
 of its own, captured on first use; dispatch replays it, enqueues the ids'
 copy into a pinned host buffer of the handle and returns without waiting.
 
-Not ported yet: the overlapped chunk upload and its feats program, the
-serialized request artifact and the 4:2:0 wire. ``overlap_single_upload``
-and ``yuv420_wire`` are accepted and not honoured (a log line at
-construction says so); results are those of the RGB upload either way.
+A request whose video is not in the device video cache takes, as in the
+JAX package, the overlapped cold path (``compile.overlap_single_upload``,
+on by default; ``_load_feats_overlapped``): the frames decode on the host
+in chunks of 8, and each chunk is uploaded from pinned memory without
+waiting and its ViT trunk (the 4:2:0 finish where the chunk came as planes,
+the normalisation, every layer, the CLS token) enqueued behind it while the
+host decodes the next chunk. On CUDA that trunk is one replay of a graph
+per chunk shape. The per-frame features [1,T,E] then feed the feats
+request program (``_fused_feats_program``: the visual branch's temporal
+half, the mapper and the decode), a graph of its own keyed by their shape;
+the assembled pixels fill the video cache, so a repeat request takes the
+pixel program. Under ``compile.yuv420_wire`` (on by default) frames that
+are 4:2:0 JPEGs at exactly the model's size travel as their raw planes
+(half the bytes of RGB; ``preprocessing/yuv420.py`` finishes the decode on
+the device, bit-exactly): the native loader's ``last_backend`` says which
+wire a load took. Without the native loader every frame travels as RGB.
+
+Not ported yet: the serialized request artifact.
 """
 from __future__ import annotations
 
@@ -83,8 +98,15 @@ from video_caption_tpu_torch.models import gpt2 as g2
 from video_caption_tpu_torch.models import vit as vt
 from video_caption_tpu_torch.models.convert import load_reference_state, merge_params
 from video_caption_tpu_torch.models.quantize import is_scale, quantize_gpt2_blocks
+from video_caption_tpu_torch.native import loader as native_loader
+from video_caption_tpu_torch.preprocessing import frame_loader
+from video_caption_tpu_torch.preprocessing.yuv420 import (packed_plane_len,
+                                                          yuv420_packed_to_rgb_chw)
 
 log = logging.getLogger(__name__)
+
+_OVERLAP_CHUNK = 8
+"""Frames a chunk of the overlapped cold path (the JAX engine's)."""
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -167,10 +189,6 @@ class InferenceEngine:
                      "kernel reads plain weights)")
             self.model_cfg = dataclasses.replace(self.model_cfg, gpt2=dataclasses.replace(
                 self.model_cfg.gpt2, use_pallas_decode_layer=False))
-        for switch, item in (("yuv420_wire", 6), ("overlap_single_upload", 4)):
-            if getattr(cc, switch):
-                log.info("compile.%s is accepted and not honoured yet (ROADMAP Queue 1, item "
-                         "%d): frames upload as RGB", switch, item)
         # a captured graph runs a fixed number of steps: early stop runs eagerly
         self._capture = cc.aot_request_program and not cc.early_stop_decode
         if cc.aot_request_program and cc.early_stop_decode:
@@ -201,6 +219,13 @@ class InferenceEngine:
         self._program = None            # the request program
         self._batch_program = None      # the batch program
         self._graphs: Dict[Tuple[int, ...], RequestGraph] = {}
+        self._feats_program = None      # the feats request program
+        self._feats_graphs: Dict[Tuple[int, ...], RequestGraph] = {}
+        # the overlapped path's chunk trunk, one graph a (wire, frames in, frames out)
+        self._trunk_graphs: Dict[Tuple[str, int, int], RequestGraph] = {}
+        size = config.image_size
+        # raw 4:2:0 planes -> uint8 RGB on the device (bit-exact with PIL)
+        self._yuv_fn = lambda planes: yuv420_packed_to_rgb_chw(planes, size)
         # device-resident LRU of uploaded videos: a repeat request for an
         # unchanged frames dir skips JPEG decode and the upload
         self._video_cache: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
@@ -345,21 +370,24 @@ class InferenceEngine:
                                      ids.repeat(v, 1), mask.repeat(v, 1), dp,
                                      generator or self.generator)
 
-    def _make_program(self, fused: bool):
+    def _make_program(self, fused: bool, from_feats: bool = False):
         """(program, group_list): ``program(video)`` takes the uploaded uint8
-        videos [V,T,3,S,S] to the token ids of every decode group, ``(ids of
-        group 0 [V*R0, N0], ...)``, through one unified loop where
-        ``_unified_eligible(group_list, fused)`` says so, else group by
-        group. It makes no host synchronisation and no host-to-device copy,
-        so a CUDA graph can capture it (counterpart of the JAX engine's
-        ``_fused_infer_program``)."""
+        videos [V,T,3,S,S] (with ``from_feats``, per-frame features
+        [V,T,E] of ``cm.encode_frames``) to the token ids of every decode
+        group, ``(ids of group 0 [V*R0, N0], ...)``, through one unified
+        loop where ``_unified_eligible(group_list, fused)`` says so, else
+        group by group. It makes no host synchronisation and no
+        host-to-device copy, so a CUDA graph can capture it (counterpart of
+        the JAX engine's ``_fused_infer_program`` and
+        ``_fused_feats_program``)."""
         group_list = self._decode_groups()
         use_unified = self._unified_eligible(group_list, fused_program=fused)
         params, model_cfg, generator = self.params, self.model_cfg, self.generator
+        to_prefix = cm.frames_to_prefix if from_feats else cm.video_to_prefix
 
         def program(video: torch.Tensor) -> Tuple[torch.Tensor, ...]:
             with torch.inference_mode():
-                prefix = cm.video_to_prefix(params, video, model_cfg)       # [V,P,H]
+                prefix = to_prefix(params, video, model_cfg)                # [V,P,H]
                 if use_unified:
                     return unified.generate_unified(
                         params["decoder"], model_cfg.gpt2, prefix,
@@ -376,6 +404,15 @@ class InferenceEngine:
         if self._program is None:
             self._program = self._make_program(fused=True)
         return self._program
+
+    def _fused_feats_program(self):
+        """The request program from per-frame features [1,T,E] (the second
+        half of the overlapped cold path: the trunk ran chunk by chunk in
+        ``_load_feats_overlapped``); its decode is the pixel request
+        program's, unified or grouped alike. Built once."""
+        if self._feats_program is None:
+            self._feats_program = self._make_program(fused=True, from_feats=True)
+        return self._feats_program
 
     def _batch_infer_program(self):
         """The batch program (the JAX engine's unfused dispatch: the groups
@@ -395,40 +432,62 @@ class InferenceEngine:
         return video.shape[0] == 1 and self._capture and (
             cc.fuse_single_request or cc.fuse_request_program)
 
+    @staticmethod
+    def _graph_of(graphs: dict, key, fn, example: torch.Tensor,
+                  generators: Sequence[torch.Generator] = ()) -> RequestGraph:
+        """``graphs[key]``, ``fn`` captured on ``example`` on first use.
+        Every graph has its own memory pool: a replay writes no other
+        graph's outputs."""
+        if key not in graphs:
+            graphs[key] = RequestGraph.capture(fn, example, generators)
+            log.info("graph for %s: warm-up run %.2f s, capture %.2f s", key,
+                     graphs[key].warmup_s, graphs[key].capture_s)
+        return graphs[key]
+
     def request_graph(self, video: torch.Tensor) -> RequestGraph:
         """The program that serves ``video``'s shape (``_program_for``),
         captured on first use of that shape with the engine's generator
-        registered. Every graph has its own memory pool: a replay writes no
-        other graph's outputs."""
-        key = tuple(video.shape)
-        if key not in self._graphs:
-            program, _ = self._program_for(video)
-            self._graphs[key] = RequestGraph.capture(
-                lambda x: _pack(program(x)), video, (self.generator,))
-            log.info("request graph for %s: warm-up run %.2f s, capture %.2f s", key,
-                     self._graphs[key].warmup_s, self._graphs[key].capture_s)
-        return self._graphs[key]
+        registered."""
+        program, _ = self._program_for(video)
+        return self._graph_of(self._graphs, tuple(video.shape),
+                              lambda x: _pack(program(x)), video, (self.generator,))
 
-    def _dispatch_videos(self, video: torch.Tensor) -> Dispatched:
-        """Run the program that serves ``video`` [V,T,3,S,S] (a replay of its
-        graph on CUDA with ``aot_request_program``, else op by op) and return
-        without waiting for the device: on CUDA the packed ids' copy to a
-        pinned host buffer is enqueued on the same stream right after the
-        program, and an event recorded behind it (the counterpart of the
-        JAX engine's ``copy_to_host_async``). The next dispatch may replay
-        the same graph: stream order puts its writes after this copy."""
-        program, group_list = self._program_for(video)
+    def feats_graph(self, feats: torch.Tensor) -> RequestGraph:
+        """The feats request program for ``feats``' shape [1,T,E], captured
+        on first use with the engine's generator registered, as the pixel
+        program's graph (the counterpart of ``_aot_single_feats_exec``): a
+        cold request and a warm one draw what the eager calls would."""
+        program, _ = self._fused_feats_program()
+        return self._graph_of(self._feats_graphs, tuple(feats.shape),
+                              lambda x: _pack(program(x)), feats, (self.generator,))
+
+    def _dispatch(self, program, group_list, x: torch.Tensor, graph) -> Dispatched:
+        """Run ``program`` on ``x`` (on CUDA with ``aot_request_program``, a
+        replay of ``graph(x)``; else op by op) and return without waiting for
+        the device: on CUDA the packed ids' copy to a pinned host buffer is
+        enqueued on the same stream right after the program, and an event
+        recorded behind it (the counterpart of the JAX engine's
+        ``copy_to_host_async``). The next dispatch may replay the same
+        graph: stream order puts its writes after this copy."""
         if self.device.type != "cuda":
-            return Dispatched(_pack(program(video)), None, group_list, video.shape[0])
-        if self._capture:
-            flat = self.request_graph(video).replay(video)
-        else:
-            flat = _pack(program(video))
+            return Dispatched(_pack(program(x)), None, group_list, x.shape[0])
+        flat = graph(x).replay(x) if self._capture else _pack(program(x))
         host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
         host.copy_(flat, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self.device))
-        return Dispatched(host, done, group_list, video.shape[0])
+        return Dispatched(host, done, group_list, x.shape[0])
+
+    def _dispatch_videos(self, video: torch.Tensor) -> Dispatched:
+        """The program that serves ``video`` [V,T,3,S,S], dispatched."""
+        program, group_list = self._program_for(video)
+        return self._dispatch(program, group_list, video, self.request_graph)
+
+    def _dispatch_feats(self, feats: torch.Tensor) -> Dispatched:
+        """The feats request program on ``feats`` [1,T,E], dispatched (the
+        overlapped cold path's second half)."""
+        program, group_list = self._fused_feats_program()
+        return self._dispatch(program, group_list, feats, self.feats_graph)
 
     def _collect_ids(self, handle: Dispatched) -> List[np.ndarray]:
         """Wait for a dispatch; ids [V*R_g, N_g] of every decode group."""
@@ -506,21 +565,126 @@ class InferenceEngine:
                 self._video_cache_total -= evicted.nbytes
 
     def load_video(self, frames_dir: str) -> torch.Tensor:
-        """frames_dir -> uint8 [1,T,3,S,S] on the engine's device (one upload,
-        or none on a video-cache hit). Stride sampling and tail padding as
-        the JAX engine; frames decode in the C++ loader, or PIL where the
-        native library is unavailable."""
-        return self._load_videos([frames_dir])
+        """frames_dir -> uint8 [1,T,3,S,S] on the engine's device (the chunked
+        upload, or none on a video-cache hit). Stride sampling and tail
+        padding as the JAX engine; frames decode in the C++ loader, or PIL
+        where the native library is unavailable."""
+        return self._load_video_to_device(frames_dir)
+
+    def _frame_picks(self, frames_dir: str) -> List[Path]:
+        """The ``num_frames`` frames a request reads: stride sampling, the
+        last one repeated where the dir has fewer."""
+        files = frame_loader.list_frames(frames_dir)
+        if not files:
+            raise FileNotFoundError(f"No frame_*.jpg files found under {frames_dir}")
+        picks = frame_loader.sample_frame_paths(files, self.config.num_frames)
+        return picks + [picks[-1]] * (self.config.num_frames - len(picks))
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. On CUDA the copy goes from
+        pinned memory and is only enqueued on the current stream: the host
+        goes on (with the next chunk's decode) while it flies."""
+        host = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _load_chunk(self, part: Sequence[Path], chunk: int) -> Tuple[str, np.ndarray]:
+        """One chunk of frames on the host: ``("yuv420", planes)`` [chunk,
+        plane_len] under ``yuv420_wire`` where the native loader takes every
+        frame (a short tail padded with its last frame, so the conversion
+        has the chunk's shape), else ``("rgb", pixels)`` [len(part),3,S,S]
+        uint8 from the native loader or PIL."""
+        size = self.config.image_size
+        if self.config.compile.yuv420_wire:
+            packed = native_loader.load_frames_native_yuv420(part, size)
+            if packed is not None:
+                if len(part) < chunk:
+                    packed = np.concatenate(
+                        [packed, np.repeat(packed[-1:], chunk - len(part), axis=0)])
+                return "yuv420", packed
+        pixels = native_loader.load_frames_native_u8(part, size)
+        if pixels is None:
+            pixels = np.stack([frame_loader.load_image_u8(p, size) for p in part])
+        return "rgb", pixels
+
+    def _load_video_to_device(self, frames_dir: str, chunk: int = 4) -> torch.Tensor:
+        """The pipelined upload (JAX engine's ``_load_video_to_device``): a
+        chunk of frames decodes while the previous one is on the wire, 4:2:0
+        chunks finish their decode on the device, and the chunks join there.
+        A video-cache hit is returned as it is; a miss fills the cache."""
+        key, cached = self._video_cache_get(frames_dir)
+        if cached is not None:
+            return cached
+        picks = self._frame_picks(frames_dir)
+        parts = []
+        for start in range(0, len(picks), chunk):
+            part = picks[start:start + chunk]
+            kind, arr = self._load_chunk(part, chunk)
+            x = self._upload(arr)
+            parts.append(self._yuv_fn(x)[:len(part)] if kind == "yuv420" else x)
+        video = torch.cat(parts)[None]
+        self._video_cache_put(key, video)
+        return video
+
+    def _chunk_trunk(self, kind: str, n: int, x: torch.Tensor):
+        """(uint8 RGB [n,3,S,S], per-frame features [n,E]) of an uploaded
+        chunk ``x`` of ``kind`` (``_load_chunk``). On CUDA with
+        ``aot_request_program`` one replay of the graph of (kind, rows of
+        x, n), captured on first use; its outputs hold until its next
+        replay."""
+        def trunk(chunk: torch.Tensor):
+            with torch.inference_mode():
+                rgb = self._yuv_fn(chunk)[:n] if kind == "yuv420" else chunk
+                return rgb, cm.encode_frames(self.params, rgb, self.model_cfg)
+
+        if self.device.type != "cuda" or not self._capture:
+            return trunk(x)
+        return self._graph_of(self._trunk_graphs, (kind, x.shape[0], n), trunk, x).replay(x)
+
+    def _load_feats_overlapped(self, frames_dir: str,
+                               chunk: int = _OVERLAP_CHUNK) -> Optional[torch.Tensor]:
+        """The overlapped cold path's first half: per chunk of ``chunk``
+        frames, the host decodes it, enqueues its upload and its trunk
+        (``_chunk_trunk``) and goes on to the next chunk while the device
+        works. Returns the per-frame features [1,T,E], or None where the
+        path does not apply: a video-cache hit (the pixels are on the
+        device) or a pooling other than ``cls``. The assembled pixels fill
+        the video cache."""
+        if self.model_cfg.vit.pool != "cls":
+            return None
+        key, cached = self._video_cache_get(frames_dir)
+        if cached is not None:
+            return None
+        picks = self._frame_picks(frames_dir)
+        t, size = len(picks), self.config.image_size
+        feats = torch.empty((1, t, self.model_cfg.vit.embed_dim), dtype=self.model_cfg.vit.dtype,
+                            device=self.device)
+        video = None if key is None else torch.empty((1, t, 3, size, size), dtype=torch.uint8,
+                                                     device=self.device)
+        for start in range(0, t, chunk):
+            part = picks[start:start + chunk]
+            kind, arr = self._load_chunk(part, chunk)
+            rgb, f = self._chunk_trunk(kind, len(part), self._upload(arr))
+            # copied out before the next replay of the same graph overwrites
+            # them: stream order keeps the copies right
+            feats[0, start:start + len(part)].copy_(f)
+            if video is not None:
+                video[0, start:start + len(part)].copy_(rgb)
+        self._video_cache_put(key, video)
+        return feats
 
     def _load_videos(self, frames_dirs: Sequence[str]) -> torch.Tensor:
-        """Frame dirs -> uint8 [V,T,3,S,S] on the device: cache hits as they
-        are, misses decoded in up to 8 worker threads (identical dirs once)
-        and uploaded as each finishes. The cache lookups (stat-bound) are
-        threaded too from 8 dirs on."""
+        """Frame dirs -> uint8 [V,T,3,S,S] on the device. One dir takes the
+        chunked upload. Several: cache hits as they are, misses decoded in
+        up to 8 worker threads (identical dirs once; 4:2:0 planes under
+        ``yuv420_wire`` where the loader takes the whole video) and uploaded
+        as each finishes. The cache lookups (stat-bound) are threaded too
+        from 8 dirs on."""
         from concurrent.futures import ThreadPoolExecutor
 
-        from video_caption_tpu_torch.preprocessing import frame_loader
-
+        if len(frames_dirs) == 1:
+            return self._load_video_to_device(frames_dirs[0])
         if len(frames_dirs) >= 8 and self._video_cache_bytes > 0:
             with ThreadPoolExecutor(max_workers=8) as pool:
                 lookups = list(pool.map(self._video_cache_get, frames_dirs))
@@ -536,14 +700,16 @@ class InferenceEngine:
             groups = list(misses.values())
             with ThreadPoolExecutor(max_workers=min(len(groups), os.cpu_count() or 1, 8)) as pool:
                 loaded = pool.map(lambda d: frame_loader.load_video_packed(
-                    d, c.num_frames, c.image_size, allow_yuv420=False),
+                    d, c.num_frames, c.image_size, allow_yuv420=c.compile.yuv420_wire),
                     [frames_dirs[g[0]] for g in groups])
-                for idxs, (_, arr) in zip(groups, loaded):
-                    video = torch.from_numpy(arr).to(self.device)
+                for idxs, (kind, arr) in zip(groups, loaded):
+                    video = self._upload(arr)
+                    if kind == "yuv420":
+                        video = self._yuv_fn(video)[None]
                     self._video_cache_put(lookups[idxs[0]][0], video)
                     for i in idxs:
                         slots[i] = video
-        return slots[0] if len(slots) == 1 else torch.cat(slots)
+        return torch.cat(slots)
 
     # ---- public API ------------------------------------------------------
 
@@ -558,7 +724,16 @@ class InferenceEngine:
         return _result(texts)
 
     def infer(self, frames_dir: str) -> InferenceResult:
-        return self.infer_video(self.load_video(frames_dir))
+        """frames_dir -> InferenceResult, as the JAX engine serves it: a
+        video-cache miss takes the overlapped cold path under
+        ``overlap_single_upload`` (the chunk trunks, then the feats request
+        program); a hit, or the path off, the chunked upload and
+        ``infer_video``."""
+        if self.config.compile.overlap_single_upload:
+            feats = self._load_feats_overlapped(frames_dir)
+            if feats is not None:
+                return _result(self._collect_videos(self._dispatch_feats(feats))[0])
+        return self.infer_video(self._load_video_to_device(frames_dir))
 
     def infer_batch_dispatch(self, frames_dirs: Sequence[str]) -> Dispatched:
         """Load, upload and enqueue a batch; returns without waiting for the
@@ -577,13 +752,30 @@ class InferenceEngine:
         return self.infer_batch_collect(self.infer_batch_dispatch(frames_dirs))
 
     def warmup(self) -> float:
-        """One request on a zero video (first-use costs: kernel build,
-        allocator growth and, on CUDA, the request graph's capture); returns
-        its seconds. It draws from the generator as much as any request."""
+        """First-use costs (kernel build, allocator growth and, on CUDA, the
+        graphs' captures) of a request on a zero video and, under
+        ``overlap_single_upload``, of the overlapped cold path: each chunk
+        shape's trunk on the RGB wire and, where the native loader builds,
+        the 4:2:0 one, and the feats program. Returns its seconds. It draws
+        from the generator as much as two requests (the pixel and the feats
+        program), as the JAX engine's warm-up."""
         t0 = time.perf_counter()
-        s = self.config.image_size
-        self.infer_video(torch.zeros((1, self.config.num_frames, 3, s, s),
-                                     dtype=torch.uint8, device=self.device))
+        c = self.config
+        s, t = c.image_size, c.num_frames
+        self.infer_video(torch.zeros((1, t, 3, s, s), dtype=torch.uint8, device=self.device))
+        if c.compile.overlap_single_upload and self.model_cfg.vit.pool == "cls":
+            chunk = _OVERLAP_CHUNK
+            kinds = ["rgb"]
+            if c.compile.yuv420_wire and native_loader.native_available():
+                kinds.append("yuv420")
+            for n in sorted({min(chunk, t), t % chunk} - {0}):
+                for kind in kinds:
+                    shape = (chunk, packed_plane_len(s)) if kind == "yuv420" else (n, 3, s, s)
+                    self._chunk_trunk(kind, n, torch.zeros(shape, dtype=torch.uint8,
+                                                           device=self.device))
+            feats = torch.zeros((1, t, self.model_cfg.vit.embed_dim),
+                                dtype=self.model_cfg.vit.dtype, device=self.device)
+            self._collect_videos(self._dispatch_feats(feats))
         return time.perf_counter() - t0
 
 

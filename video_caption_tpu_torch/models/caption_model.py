@@ -3,8 +3,8 @@ prefix mapper + GPT-2 (counterpart of video_caption_tpu/models/caption_model.py)
 
 The mapper product runs through the prefix-projector kernel
 (ops/prefix_projector.py) on the GPU. ``compute_loss`` is the teacher-forcing
-loss of the mapper trainer (training/mapper_trainer.py). The packed 4:2:0
-video input is still to port.
+loss of the mapper trainer (training/mapper_trainer.py). ``encode_video``
+also takes the packed 4:2:0 wire (preprocessing/yuv420.py).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from video_caption_tpu_torch.models import gpt2 as g2
 from video_caption_tpu_torch.models import vit as vt
 from video_caption_tpu_torch.ops.prefix_norm import apply_prefix_norm
 from video_caption_tpu_torch.ops.prefix_projector import prefix_project
+from video_caption_tpu_torch.preprocessing.yuv420 import yuv420_packed_to_rgb_chw
 
 Params = Dict[str, Any]
 
@@ -83,10 +84,14 @@ def _adapt(params: Params, emb: torch.Tensor) -> torch.Tensor:
 
 
 def encode_video(params: Params, video: torch.Tensor, cfg: CaptionModelConfig) -> torch.Tensor:
-    """[B,T,3,H,W] (f32 or uint8) -> projected video embedding [B, video_dim] f32."""
-    if video.ndim != 5:
-        raise NotImplementedError("only [B,T,3,H,W] pixel input is ported "
-                                  "(the packed 4:2:0 wire is still to port)")
+    """[B,T,3,H,W] (f32 or uint8), or [B,T,plane_len] packed 4:2:0 planes
+    (the device finishes their JPEG decode bit-exactly first) -> projected
+    video embedding [B, video_dim] f32."""
+    if video.ndim == 3:
+        b, t = video.shape[0], video.shape[1]
+        size = cfg.vit.image_size
+        video = yuv420_packed_to_rgb_chw(video.reshape(b * t, -1), size).reshape(
+            b, t, 3, size, size)
     return _adapt(params, vt.vit_encode(params["encoder"], video, cfg.vit))
 
 

@@ -613,7 +613,9 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     single-request ``natural`` group: B=1, a 64-column cache; for
     fused_pool, the joint training step's 4 videos x 8 frames in f32).
     encoder_attention also runs at the trainers' 4 x 8 frames (f32 in the
-    joint step, bf16 in the mapper step), prefix_projector at 1, 8, 4 (the
+    joint step, bf16 in the mapper step), at a chunk of 8 frames (the
+    overlapped cold request's trunk) and at 64 (retrieval: 8 videos x 8
+    frames), prefix_projector at 1, 8, 4 (the
     mapper step) and 64 rows, lm_head from one row to 256 (12: the serving
     presets' unified request; 24 and 96: batches; 5: eval_compare's beam-5
     decode of one video), beam_attention in both
@@ -629,6 +631,7 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     out += [check_encoder_attention(n, device) for n in (16, 128)]
     out += [check_encoder_attention(32, device, dtype=torch.float32),   # joint step
             check_encoder_attention(32, device)]                        # mapper step
+    out += [check_encoder_attention(n, device) for n in (8, 64)]        # cold chunk, retrieval
     out += [check_prefix_projector(b, device) for b in (1, 8, 4, 64)]   # 4: the mapper step
     out += [check_lm_head(r, device) for r in (9, 6, 1, 12, 24, 96, 192, 64, 256, 5)]
     # the unified request's blocks: core presets (beam-3 x 2, natural) and
