@@ -3,8 +3,8 @@ fastapi, which the card's machine lacks, nor sacrebleu or NLTK, which it
 lacks too), and its own copies
 of the reference's JAX-free modules (config, datatypes, tokenizer, presets,
 post-processing, frame loading, the training data loader, the benchmark's
-report writers, BLEU scoring, the retrieval index) behave as the originals
-do. The 4:2:0 conversion (preprocessing/yuv420.py) is a rewrite in torch,
+report writers, BLEU scoring, the retrieval index, the best-of scoring and
+the synthetic dataset renderer) behave as the originals do. The 4:2:0 conversion (preprocessing/yuv420.py) is a rewrite in torch,
 held against the original in tests/test_torch_yuv420.py."""
 import dataclasses
 import json
@@ -55,10 +55,13 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         "             'server.services.task_manager', 'cli.serve', 'env', 'memory',\n"
         "             'bench.report', 'bench.benchmark', 'bench.profile', 'bench.probes',\n"
         "             'bench.roofline', 'bench.serving_load', 'bench.accuracy_alignment',\n"
-        "             'bench.driver', 'cli.check_env', 'models.quantize', 'eval.bleu',\n"
-        "             'eval.eval_compare', 'eval.ablate_decode', 'preprocessing.yuv420',\n"
+        "             'bench.driver', 'bench.align_rate', 'cli.check_env', 'models.quantize',\n"
+        "             'eval.bleu', 'eval.eval_compare', 'eval.ablate_decode',\n"
+        "             'preprocessing.yuv420',\n"
         "             'retrieval.index', 'retrieval.features', 'retrieval.eval_retrieval',\n"
-        "             'retrieval.query_video', 'cli.caption_video'):\n"
+        "             'retrieval.query_video', 'cli.caption_video', 'tools.batch_infer',\n"
+        "             'tools.batch_bestof', 'tools.export_checkpoint', 'tools.debug_chain',\n"
+        "             'tools.quality_loop'):\n"
         "    assert p.__name__ + '.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'video_caption_tpu', 'pydantic', 'fastapi', 'uvicorn', 'starlette', 'sacrebleu', "
@@ -74,6 +77,22 @@ def test_report_copy_is_the_jax_packages_file():
     original, byte for byte."""
     assert (REPO / "video_caption_tpu_torch/bench/report.py").read_bytes() == \
         (REPO / "video_caption_tpu/bench/report.py").read_bytes()
+
+
+@pytest.mark.parametrize("module,first,end", [
+    ("tools/batch_bestof.py", "BAD_REGEX = ", "def main("),
+    ("tools/quality_loop.py", "COLORS = {", "def train_stage3_lm("),
+])
+def test_host_code_copies_are_the_jax_modules_text(module, first, end):
+    """batch_bestof's scoring (its regexes, lexicons, score_sentence,
+    pick_best, bestof_from_rows) and the quality loop's dataset renderer
+    (class_caption, _render_frame, make_synthetic_dataset) import nothing of
+    either package: the copies are the originals' text."""
+    def block(package):
+        text = (REPO / package / module).read_text()
+        return text[text.index(first):text.index(end)]
+
+    assert block("video_caption_tpu_torch") == block("video_caption_tpu")
 
 
 def test_bleu_copy_scores_as_the_jax_packages_module():

@@ -66,6 +66,10 @@ are 4:2:0 JPEGs at exactly the model's size travel as their raw planes
 the device, bit-exactly): the native loader's ``last_backend`` says which
 wire a load took. Without the native loader every frame travels as RGB.
 
+``infer``, ``infer_batch_dispatch`` and ``infer_batch_collect`` run inside
+``self.memory.oom_guard()``, as in the JAX package: a device OOM logs a
+snapshot of the device's memory, then re-raises.
+
 Not ported yet: the serialized request artifact.
 """
 from __future__ import annotations
@@ -93,15 +97,18 @@ from video_caption_tpu_torch.decode.presets import preset_to_kwargs
 from video_caption_tpu_torch.decode.tokenizer import get_tokenizer
 from video_caption_tpu_torch.postprocessing.candidate_ranker import select_best
 from video_caption_tpu_torch.postprocessing.text_cleaner import clean_text
+from video_caption_tpu_torch.memory import MemoryManager
 from video_caption_tpu_torch.models import caption_model as cm
 from video_caption_tpu_torch.models import gpt2 as g2
 from video_caption_tpu_torch.models import vit as vt
-from video_caption_tpu_torch.models.convert import load_reference_state, merge_params
+from video_caption_tpu_torch.models.convert import (load_reference_state, load_torch_checkpoint,
+                                                    merge_params)
 from video_caption_tpu_torch.models.quantize import is_scale, quantize_gpt2_blocks
 from video_caption_tpu_torch.native import loader as native_loader
 from video_caption_tpu_torch.preprocessing import frame_loader
 from video_caption_tpu_torch.preprocessing.yuv420 import (packed_plane_len,
                                                           yuv420_packed_to_rgb_chw)
+from video_caption_tpu_torch.training.checkpoint import restore_params
 
 log = logging.getLogger(__name__)
 
@@ -131,20 +138,28 @@ def model_config_from_inference(config: InferenceConfig) -> cm.CaptionModelConfi
 def load_params(config: InferenceConfig, model_cfg: cm.CaptionModelConfig, seed: int,
                 device) -> dict:
     """A reference-format ``.pt``/``.pth``/``.bin`` checkpoint over a random
-    init (what it lacks keeps its init), or random parameters when
-    ``config.ckpt`` does not exist. Any other existing path raises: the
-    engine never serves random weights in place of a checkpoint it cannot
-    read."""
+    init (what it lacks keeps its init), a trainer's checkpoint directory
+    (``training/checkpoint.py``: ``model.pt`` and ``train_meta.json``), or
+    random parameters when ``config.ckpt`` does not exist. Any other
+    existing path, and a directory that does not restore into this model,
+    raises: the engine never serves random weights in place of a checkpoint
+    it cannot read."""
     init = cm.init_caption_model(seed, model_cfg, device)
     ckpt = Path(config.ckpt)
     if ckpt.is_file() and ckpt.suffix in {".pt", ".pth", ".bin"}:
-        state = torch.load(str(ckpt), map_location="cpu", weights_only=True)
-        loaded = load_reference_state(state, model_cfg)
+        loaded = load_reference_state(load_torch_checkpoint(str(ckpt)), model_cfg)
         log.info("loaded reference checkpoint %s (%d families)", ckpt, len(loaded))
         return merge_params(init, loaded)
+    if ckpt.is_dir():
+        restored = restore_params(str(ckpt), init)
+        if restored is not None:
+            log.info("loaded checkpoint directory %s", ckpt)
+            return merge_params(init, restored)
+        raise RuntimeError(f"checkpoint {ckpt} exists but could not be restored; the port "
+                           "will not serve random parameters in its place (the log says why)")
     if ckpt.exists():
-        raise RuntimeError(f"checkpoint {ckpt} is not a reference-format .pt file; the "
-                           "port cannot read it and will not serve random parameters")
+        raise RuntimeError(f"checkpoint {ckpt} is neither a reference-format .pt file nor a "
+                           "checkpoint directory; the port will not serve random parameters")
     log.warning("checkpoint %s not found; using randomly initialized parameters", ckpt)
     return init
 
@@ -182,6 +197,8 @@ class InferenceEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but no CUDA device is available")
         self.config = config
+        # an OOM inside a request logs the device's memory, then re-raises
+        self.memory = MemoryManager(config.memory, self.device)
         cc = config.compile
         self.model_cfg = model_cfg or model_config_from_inference(config)
         if cc.quantize_decoder_int8 and self.model_cfg.gpt2.use_pallas_decode_layer:
@@ -729,22 +746,28 @@ class InferenceEngine:
         ``overlap_single_upload`` (the chunk trunks, then the feats request
         program); a hit, or the path off, the chunked upload and
         ``infer_video``."""
-        if self.config.compile.overlap_single_upload:
-            feats = self._load_feats_overlapped(frames_dir)
-            if feats is not None:
-                return _result(self._collect_videos(self._dispatch_feats(feats))[0])
-        return self.infer_video(self._load_video_to_device(frames_dir))
+        with self.memory.oom_guard():
+            if self.config.compile.overlap_single_upload:
+                feats = self._load_feats_overlapped(frames_dir)
+                if feats is not None:
+                    return _result(self._collect_videos(self._dispatch_feats(feats))[0])
+            return self.infer_video(self._load_video_to_device(frames_dir))
 
     def infer_batch_dispatch(self, frames_dirs: Sequence[str]) -> Dispatched:
         """Load, upload and enqueue a batch; returns without waiting for the
         device. Pair with ``infer_batch_collect``: a caller can dispatch
         batch N+1 (its JPEG decode and upload included) before collecting
         batch N."""
-        return self._dispatch_videos(self._load_videos(frames_dirs))
+        with self.memory.oom_guard():
+            return self._dispatch_videos(self._load_videos(frames_dirs))
 
     def infer_batch_collect(self, handle: Dispatched) -> List[InferenceResult]:
-        """Wait for a dispatched batch; one InferenceResult per video."""
-        return [_result(texts) for texts in self._collect_videos(handle)]
+        """Wait for a dispatched batch; one InferenceResult per video. Device
+        errors (an OOM among them) surface here, hence the guard on this side
+        too."""
+        with self.memory.oom_guard():
+            collected = self._collect_videos(handle)
+        return [_result(texts) for texts in collected]
 
     def infer_batch(self, frames_dirs: Sequence[str]) -> List[InferenceResult]:
         """Several videos in one program: one encoder pass over all of them

@@ -11,14 +11,18 @@ So moving weights between the packages moves arrays as they are:
   HF GPT-2 Conv1D, tied LM head) that the JAX package's
   ``export_torch_state`` writes, so one ``{"model_state": ...}`` ``.pt`` file
   loads into both packages;
-- ``export_torch_state`` writes the port's tree into that key space (the
-  checkpoints of training/checkpoint.py);
+- ``export_torch_state`` writes the port's tree into that key space, and
+  ``save_torch_checkpoint`` the reference-format ``.pt`` around it (the
+  trainers' checkpoints, training/checkpoint.py, and
+  tools/export_checkpoint.py); ``load_torch_checkpoint`` reads such a file
+  back as its state dict;
 - ``align_params_from_jax_numpy`` takes the JAX alignment model's tree
   (models/align.py).
 """
 from __future__ import annotations
 
 import logging
+from pathlib import Path
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -192,19 +196,34 @@ def export_torch_state(params: Mapping, cfg: CaptionModelConfig) -> Dict[str, to
     return out
 
 
-def load_reference_state(state_dict: Mapping, cfg: CaptionModelConfig) -> Params:
+def _layers(state: Mapping, prefix: str) -> int:
+    """Blocks ``<prefix><i>.`` the state holds (0 where it holds none)."""
+    idx = {int(k[len(prefix):].split(".", 1)[0]) for k in state if k.startswith(prefix)}
+    return max(idx) + 1 if idx else 0
+
+
+def _unwrap(state_dict: Mapping) -> Dict[str, Any]:
+    """The state dict of a ``{"model_state": ...}`` payload (or the state
+    itself), legacy ``vit.*`` keys read as ``encoder.backbone.*``."""
+    if "model_state" in state_dict:
+        state_dict = state_dict["model_state"]
+    return {("encoder.backbone." + k[4:] if k.startswith("vit.") else k): v
+            for k, v in state_dict.items()}
+
+
+def load_reference_state(state_dict: Mapping, cfg: CaptionModelConfig = None) -> Params:
     """Reference state dict (optionally wrapped as ``{"model_state": ...}``)
     -> the families of the port's tree it holds, as f32 CPU tensors. Legacy
     ``vit.*`` keys are read as ``encoder.backbone.*``. The LM head is tied to
     ``wte``. Families the state lacks are left out (the caller keeps their
-    random init) with a warning."""
-    if "model_state" in state_dict:
-        state_dict = state_dict["model_state"]
-    state = {("encoder.backbone." + k[4:] if k.startswith("vit.") else k): v
-             for k, v in state_dict.items()}
+    random init) with a warning. The stacks hold ``cfg``'s depths, or with
+    no ``cfg`` every block the state holds."""
+    state = _unwrap(state_dict)
+    depth = cfg.vit.depth if cfg else _layers(state, "encoder.backbone.blocks.")
+    n_layer = cfg.gpt2.n_layer if cfg else _layers(state, "decoder.model.transformer.h.")
     params: Params = {}
     if any(k.startswith("encoder.backbone.") for k in state):
-        params["encoder"] = _timm_vit(state, "encoder.backbone.", cfg.vit.depth)
+        params["encoder"] = _timm_vit(state, "encoder.backbone.", depth)
         if "encoder.proj.weight" in state:
             params["encoder"]["head"] = _linear(state, "encoder.proj")
     else:
@@ -216,12 +235,45 @@ def load_reference_state(state_dict: Mapping, cfg: CaptionModelConfig) -> Params
     else:
         log.warning("state has no decoder.mapper.* keys; mapper not loaded")
     if any(k.startswith("decoder.model.") for k in state):
-        params["decoder"] = _hf_gpt2(state, "decoder.model.", cfg.gpt2.n_layer)
+        params["decoder"] = _hf_gpt2(state, "decoder.model.", n_layer)
     else:
         log.warning("state has no decoder.model.* keys; decoder not loaded")
     if "proj.0.weight" in state:
         params["proj_mlp"] = {"fc1": _linear(state, "proj.0"), "fc2": _linear(state, "proj.2")}
     return params
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference-format ``.pt`` (a state dict, or ``{"model_state": ...}``)
+    -> its state dict, legacy ``vit.*`` keys read as ``encoder.backbone.*``.
+    Only the safe load (``weights_only=True``): the port unpickles no code."""
+    return _unwrap(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def save_payload(payload: Mapping, path) -> None:
+    """``torch.save`` to ``<path>.tmp``, then renamed over ``path``: a reader
+    never sees half a file."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(dict(payload), tmp)
+    tmp.replace(path)
+
+
+def save_torch_checkpoint(path, params: Mapping, cfg: CaptionModelConfig, step: int = 0,
+                          epoch: int = 0, best_val: float = float("inf"), args=None,
+                          opt_state: Any = None) -> None:
+    """Write a reference-format checkpoint ``{"model_state", "step", "epoch",
+    "best_val", "args"}`` (the reference's train_caption_mapper payload),
+    loadable by the reference's model loader and by both packages'
+    ``load_params``; ``opt_state`` (CPU tensors) is kept beside it where
+    given."""
+    payload = {"model_state": export_torch_state(params, cfg), "step": step, "epoch": epoch,
+               "best_val": best_val, "args": args or {}}
+    if opt_state is not None:
+        payload["opt_state"] = opt_state
+    save_payload(payload, path)
+    log.info("saved reference-format checkpoint to %s (%d tensors)", path,
+             len(payload["model_state"]))
 
 
 def merge_params(init: Params, loaded: Params) -> Params:

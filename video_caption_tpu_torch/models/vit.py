@@ -192,14 +192,17 @@ def normalize_pixels(video: torch.Tensor) -> torch.Tensor:
 
 def vit_encode_frames(params: Params, frames: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     """Per-frame half of ``vit_encode``: [C,3,H,W] (uint8 or float) ->
-    per-frame pooled features [C, embed_dim] in the compute dtype (the CLS
-    token, or with gap the mean of the patch tokens, as the JAX package
-    takes it: no kernel)."""
+    per-frame pooled features [C, embed_dim] in the compute dtype: the CLS
+    token, or with gap the f32 mean of the patch tokens. The JAX package
+    takes that mean in plain XLA; here it is the fused pool kernel at one
+    frame a video (its plain version on the CPU), differentiable, so the
+    alignment model's ``temporal_mode="diff"`` runs the kernel forward and
+    its backward."""
     if frames.dtype == torch.uint8:
         frames = normalize_pixels(frames)
     if cfg.pool == "cls":
         return vit_trunk(params, frames, cfg, cls_only=True)[:, 0, :]
-    return vit_trunk(params, frames, cfg)[:, 1:, :].mean(dim=1)
+    return fused_pool_temporal(vit_trunk(params, frames, cfg), frames.shape[0], 1, "gap")
 
 
 def vit_finish(params: Params, per_frame: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:

@@ -597,12 +597,18 @@ def check_prefix_projector_backward(rows: int, device="cuda", din: int = 256, do
 
 def backward_checks(device="cuda") -> List[BackwardResult]:
     """The backward passes at the trainers' shapes: the joint step's 4 videos
-    x 8 frames (encoder_attention in f32 and bf16, fused_pool gap f32) and
-    the mapper trainer's batch of 4."""
+    x 8 frames (encoder_attention in f32 and bf16, fused_pool gap f32), the
+    mapper trainer's batch of 4, and the quality loop's align step (f32,
+    fused_pool's per-frame gap mean at T = 1) at 8 videos x 8 frames
+    (``chip_smoke.py``'s cut) and 96 x 8 (the loop's defaults)."""
     return [check_encoder_attention_backward(32, torch.float32, device),
             check_encoder_attention_backward(32, torch.bfloat16, device),
             check_fused_pool_backward(4, 8, "gap", device),
-            check_prefix_projector_backward(4, device)]
+            check_prefix_projector_backward(4, device),
+            check_encoder_attention_backward(64, torch.float32, device),
+            check_encoder_attention_backward(768, torch.float32, device),
+            check_fused_pool_backward(64, 1, "gap", device),
+            check_fused_pool_backward(768, 1, "gap", device)]
 
 
 def main_path_checks(device="cuda") -> List[CheckResult]:
@@ -626,7 +632,10 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     decode_attention at B=64 (batched), at B=2, L=300 and B=1, L=1024 (split
     over a cluster), on a row with no visible column, over stale rows of
     1e4, in f32, and at L=4096 (chunks), and decode_layer at B=1 and 8 over
-    12 layers and one, in f32, over a 1024-row cache and at B=64."""
+    12 layers and one, in f32, over a 1024-row cache and at B=64. The
+    quality loop's align step runs encoder_attention in f32 and fused_pool
+    in f32 at one frame a video (the per-frame gap mean) over 64 frames
+    (``chip_smoke.py``'s cut) and 768 (the loop's defaults)."""
     out = []
     out += [check_encoder_attention(n, device) for n in (16, 128)]
     out += [check_encoder_attention(32, device, dtype=torch.float32),   # joint step
@@ -661,4 +670,6 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     out += [check_fused_pool(4, 8, "gap", torch.float32, device),
             check_fused_pool(16, 8, "gap", torch.bfloat16, device),
             check_fused_pool(2, 8, "cls", torch.bfloat16, device)]
+    out += [check_encoder_attention(n, device, dtype=torch.float32) for n in (64, 768)]
+    out += [check_fused_pool(n, 1, "gap", torch.float32, device) for n in (64, 768)]
     return out

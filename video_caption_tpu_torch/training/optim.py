@@ -154,6 +154,12 @@ def adamw(params: Params, lr: Union[float, Schedule], weight_decay: float = 1e-4
                     clip_norm=clip_norm)
 
 
+def adam(params: Params, lr: float) -> TreeAdam:
+    """``optax.adam(lr)``: the Adam update scaled by ``lr`` on every leaf,
+    no weight decay and no clipping."""
+    return TreeAdam(full_finetune_lr_tree(params, lr), 0.0)
+
+
 def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int,
                         decay_steps: int, end_value: float = 0.0) -> Schedule:
     """``optax.warmup_cosine_decay_schedule``: a linear ramp from
