@@ -106,7 +106,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    building the serving-preset engine (absent checkpoint: seeded random
    weights), 16 concurrent clients POST /infer, twice: every answer 200 and
    well formed, at least one batch of more than one formed by the queue and
-   no request retried alone; batch sizes, client p50/p99, captions/s;
+   no request retried alone; batch sizes, client p50/p99, captions/s; then
+   the frontend against the same server: ``frontend/api_client``'s
+   ``check_health`` (true), ``infer_caption`` (a well-formed result) and its
+   ``BackendError`` on a missing dir (400), and
+   ``frontend/chainlit_app.handle_message`` (the markdown reply with BEST
+   and S1-S3; its request carries the phase's payload fields) and its
+   reply to a path that is no directory;
 12. frame path: (a) the wire a packed load of the smoke's frames takes
    (the native loader's ``last_backend`` and ``last_error``: without
    libjpeg headers it does not build and frames decode through PIL as
@@ -157,7 +163,19 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    checkpoint directory and one over ``tools/export_checkpoint``'s .pt of
    it: identical parameters and S1 ids; ``tools/batch_infer`` over the
    val split with that directory at batch 2 (one row per video) and
-   ``tools/batch_bestof``'s pick from its rows;
+   ``tools/batch_bestof``'s pick from its rows; ``tools/hybrid_infer.hybrid_caption``
+   through the directory's engine on 2 val videos, each after a first
+   ``infer``: with a counting stub fallback (S1 and S2 equal to ``infer``'s
+   on the same dir), then with ``tools/caption_fallback.make_blip_fallback()``
+   (BEST and USED as ``is_bad_caption`` of the candidates decides; a BLIP
+   fallback that is called reports ``fallback_failed:``: the card's
+   machine has transformers but no weights, and the hub is kept offline;
+   the first call's import of transformers takes ~11 s there), and both
+   fallbacks once more on candidates made to fail the gate (the stub's
+   caption taken, BLIP's failure recorded), the kernels' counts read around
+   each request (the unified request's, encoder_attention 12 at 8 frames)
+   and the ms of each request; ``tools/human_eval.main`` on the batch_infer
+   CSV: a questionnaire of one row per captioned video;
 15. the seconds of each phase and of the run, the kernel table as one JSON
    line (launches of each kernel's path: the default engine's requests,
    each fused-decode engine's, the joint steps' for fused_pool), the
@@ -173,6 +191,8 @@ import csv
 import dataclasses
 import json
 import math
+import os
+import re
 import statistics
 import sys
 import tempfile
@@ -234,6 +254,7 @@ QUALITY_LOOP_GRID = {"num_beams": (1, 3, 5), "temperature": (0.8,), "top_p": (0.
 QUALITY_LOOP_KERNELS = ("encoder_attention", "fused_pool", "prefix_projector", "lm_head",
                         "beam_attention")
 QUALITY_LOOP_FRAMES = 8
+HYBRID_VIDEOS = 2       # val videos of the quality loop that hybrid_caption captions
 EVAL_GRID = {"num_beams": (1, 3, 5), "temperature": (0.8, 1.0), "top_p": (0.9,),
              "no_repeat_ngram_size": (3,)}
 FULL_VOCAB = {"precise": {"repetition_penalty": 0.9}, "natural": {"top_k": 0}}
@@ -257,6 +278,9 @@ def main() -> int:
     parser.add_argument("--report", help="write the details as JSON to this path")
     args = parser.parse_args()
     run_t0 = time.perf_counter()
+    # phase 14's BLIP fallback names a hub model: where transformers is
+    # installed, it must fail on the missing weights and not reach for a hub
+    os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -1466,6 +1490,7 @@ def _server_phase(dirs, ckpt):
                                "p50_ms": statistics.median(lat),
                                "p99_ms": lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)],
                                "captions_per_s": SERVER_CLIENTS / wall, "wall_s": wall})
+        frontend = _frontend_checks(server.port, payload, dirs)
     finally:
         server.stop()
         batching_queue.get_queue(engine).stop()
@@ -1484,7 +1509,53 @@ def _server_phase(dirs, ckpt):
     if retries:
         raise AssertionError(f"the queue retried {len(retries)} requests one by one")
     return {"build_s": build_s, "warmup_s": warm_s, "rounds": rounds, "retries": len(retries),
-            "warmed_before_round_2": warmed}
+            "warmed_before_round_2": warmed, "frontend": frontend}
+
+
+def _frontend_checks(port, payload, dirs) -> dict:
+    """Phase 11's frontend: the port's REST client (``frontend/api_client``,
+    its ``BACKEND_URL`` set to the running server) and the chat handler
+    (``frontend/chainlit_app.handle_message``) against the server. The
+    client's requests carry the phase's payload fields, so they reach the
+    phase's engine; the handler's go through its module's ``infer_caption``
+    bound to them. Every answer must be well formed."""
+    import functools
+    import importlib.util
+
+    from video_caption_tpu_torch.frontend import api_client, chainlit_app
+
+    t0 = time.perf_counter()
+    fields = {k: v for k, v in payload(dirs[0]).items() if k != "frames_dir"}
+    api_client.BACKEND_URL = f"http://127.0.0.1:{port}"
+    healthy = api_client.check_health()
+    body = api_client.infer_caption(dirs[1], **fields)
+    _check_result(body)
+    try:
+        api_client.infer_caption(str(Path(dirs[0]).parent / "no-such-dir"), **fields)
+        error = None
+    except api_client.BackendError as err:
+        error = str(err)
+    unbound = chainlit_app.infer_caption
+    chainlit_app.infer_caption = functools.partial(api_client.infer_caption, **fields)
+    try:
+        reply = chainlit_app.handle_message(f' "{dirs[2]}" ')
+        missing = chainlit_app.handle_message(str(Path(dirs[0]).parent / "no-such-dir"))
+    finally:
+        chainlit_app.infer_caption = unbound
+    seconds = time.perf_counter() - t0
+    transport = "httpx" if importlib.util.find_spec("httpx") else "urllib"
+    log(f"server frontend ({transport}): check_health {healthy}; infer_caption "
+        f"{json.dumps(body)}; a missing dir -> BackendError {error!r}; handle_message "
+        f"{reply!r}, on a missing dir {missing!r}; {seconds:.2f} s")
+    lines = reply.splitlines()
+    well_formed = (len(lines) == 5 and re.match(r"\*\*BEST \(S[123]\):\*\* \S", lines[0])
+                   and all(re.match(rf"- S{i}: \S", line) for i, line in enumerate(lines[2:], 1)))
+    if not (healthy and error and error.startswith("backend error 400: ") and well_formed
+            and "is not a directory" in missing):
+        raise AssertionError(f"the frontend's answers are not well formed: health {healthy}, "
+                             f"error {error!r}, reply {reply!r}, missing {missing!r}")
+    return {"healthy": healthy, "result": body, "error": error, "reply": reply,
+            "transport": transport, "seconds": seconds}
 
 
 def _quality_loop_phase(root: Path) -> dict:
@@ -1493,7 +1564,7 @@ def _quality_loop_phase(root: Path) -> dict:
     from video_caption_tpu_torch.config import default_inference_config
     from video_caption_tpu_torch.engine import InferenceEngine
     from video_caption_tpu_torch.tools import (batch_bestof, batch_infer, export_checkpoint,
-                                               quality_loop)
+                                               human_eval, quality_loop)
 
     out, data = root / "quality_loop", root / "quality_loop_data"
     phase_t0 = time.perf_counter()
@@ -1571,7 +1642,9 @@ def _quality_loop_phase(root: Path) -> dict:
     if not (same_params and (s1_dir == s1_pt).all()):
         raise AssertionError("the engine over the trainer's directory disagrees with the engine "
                              "over its exported .pt")
-    del from_dir, from_pt
+    del from_pt
+    hybrid = _hybrid_checks(from_dir, [v["frames_dir"] for v in val[:HYBRID_VIDEOS]])
+    del from_dir
     t0 = time.perf_counter()
     rows = batch_infer.batch_infer(str(val_ann), str(root / "quality_loop_batch.csv"),
                                    ckpt=str(ckpt), num_frames=QUALITY_LOOP_FRAMES, batch_size=2,
@@ -1582,6 +1655,18 @@ def _quality_loop_phase(root: Path) -> dict:
         log(f"quality loop: batch_infer {row['video_id']}: S1 {row['S1']!r} S2 {row['S2']!r} "
             f"S3 {row['S3']!r} best {row['best_key']} (ref {row['ref_caption']!r}); best-of "
             f"{pick['caption']!r}")
+    t0 = time.perf_counter()
+    questionnaire_csv = root / "quality_loop_questionnaire.csv"
+    if human_eval.main(["--results_csv", str(root / "quality_loop_batch.csv"),
+                        "--out", str(questionnaire_csv)]) != 0:
+        raise AssertionError("human_eval failed")
+    with questionnaire_csv.open() as fh:
+        questionnaire = list(csv.DictReader(fh))
+    human_s = time.perf_counter() - t0
+    captioned = sorted(r["video_id"] for r in rows if r["best_text"])
+    log(f"quality loop: human_eval questionnaire of {len(questionnaire)} rows over the "
+        f"{len(rows)} batch_infer rows in {human_s:.2f} s: "
+        f"{[(r['video_id'], r['caption']) for r in questionnaire]}")
     phase_s = time.perf_counter() - phase_t0
     log(f"quality loop: batch_infer over {len(rows)} val videos at batch 2 in {batch_s:.1f} s "
         f"(engine build and graph captures included); the phase {phase_s:.1f} s")
@@ -1589,19 +1674,147 @@ def _quality_loop_phase(root: Path) -> dict:
             p["caption"] in (r["S1"], r["S2"], r["S3"]) for r, p in zip(rows, best)):
         raise AssertionError(f"batch_infer / batch_bestof did not caption every val video: "
                              f"{rows}, {best}")
+    if sorted(r["video_id"] for r in questionnaire) != captioned or not all(
+            r["caption"] for r in questionnaire):
+        raise AssertionError(f"the questionnaire does not hold one row per sampled video: "
+                             f"{questionnaire}")
     return {"rc": rc, "wall_s": wall, "phase_s": phase_s, "stage_s": stage_s, "losses": losses,
             "bleu": summary, "retrieval": result["retrieval"], "ablate_top": result["ablate_top"],
             "launches": launches, "peak_bytes": peak, "batch_infer_rows": rows, "bestof": best,
             "batch_infer_s": batch_s, "align_at_low_rate": {"lr": QUALITY_LOOP_ALIGN_LR,
                                                             "losses": align_losses,
-                                                            "seconds": align_s}}
+                                                            "seconds": align_s},
+            "hybrid": hybrid, "questionnaire": questionnaire, "human_eval_s": human_s}
+
+
+class _CountingFallback:
+    """A fallback captioner that counts its calls and answers a caption the
+    gate passes."""
+    name = "counting-stub"
+    text = "A person is moving a shape across the frame."
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, frames_dir):
+        self.calls += 1
+        return self.text
+
+
+class _JunkDecodes:
+    """The engine's tokenizer with a word the gate takes for boilerplate in
+    front of every decode: candidates that fail the gate, so that both
+    fallbacks are reached on the card."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "youtube " + self.inner.decode(ids, skip_special_tokens=skip_special_tokens)
+
+
+def _hybrid_checks(engine, dirs) -> dict:
+    """Phase 14's hybrid inference: ``tools/hybrid_infer.hybrid_caption``
+    through ``engine`` (the mapper's checkpoint directory, full width) on
+    ``dirs``, after ``engine.warmup()`` (its graphs' captures, as in phase
+    4). Each dir's first request is ``engine.infer`` (cold where the video
+    is not in the device cache yet); then hybrid_caption with a counting stub
+    fallback, ``infer`` again (S1 and S2 must equal the hybrid's: the same
+    warm program), and hybrid_caption with ``make_blip_fallback()``; BEST
+    and USED must be what ``is_bad_caption`` of the candidates decides, and a
+    BLIP fallback that was called must read ``fallback_failed:`` (the card's
+    machine has no weights, and the hub is kept offline).
+    Then both fallbacks once more on candidates that fail the gate. The
+    kernels' counts are read around each request and must be the unified
+    request's."""
+    from video_caption_tpu_torch.tools import caption_fallback, hybrid_infer
+
+    # the BLIP fallback names a hub model: where transformers is installed
+    # it must fail on the missing weights and never reach for the hub (set
+    # before huggingface_hub is first imported; main sets it first thing)
+    os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"
+    t0 = time.perf_counter()
+    warmup_s = engine.warmup()
+    blip = caption_fallback.make_blip_fallback()
+    per_request, timed, out = [], [], []
+
+    def request(kind, call, d):
+        cold = engine._video_cache_get(d)[1] is None
+        before = _kernel_counts()
+        start = time.perf_counter()
+        res = call(d)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) * 1000
+        timed.append({"kind": kind, "cold": cold, "ms": ms})
+        per_request.append((cold, {n: c - before[n] for n, c in _kernel_counts().items()}))
+        return res
+
+    def expect(res, fallback, taken_text):
+        """BEST and USED as the gate decides them from the candidates."""
+        key, text = hybrid_infer.pick_best_from_ours(res)
+        bad, reason = hybrid_infer.is_bad_caption(text)
+        used = {"source": "ours", "detail": key, "fallback_reason": ""}
+        if bad or key == "NONE":
+            if taken_text is not None:
+                text = taken_text
+                used = {"source": "fallback", "detail": fallback.name, "fallback_reason": reason}
+            else:
+                used["fallback_reason"] = res["USED"]["fallback_reason"]
+                if not used["fallback_reason"].startswith("fallback_failed:"):
+                    raise AssertionError(f"the BLIP fallback did not report its failure: {res}")
+        if res["BEST"] != {"key": key, "text": text} or res["USED"] != used:
+            raise AssertionError(f"hybrid_caption's BEST/USED disagree with the gate: {res}")
+        return bad or key == "NONE"
+
+    for d in dirs:
+        request("infer", engine.infer, d)
+        stub = _CountingFallback()
+        res = request("hybrid stub", lambda x: hybrid_infer.hybrid_caption(x, engine, stub), d)
+        ours = request("infer", lambda x: engine.infer(x).to_api_dict(), d)
+        if (res["S1"], res["S2"]) != (ours["S1"], ours["S2"]):
+            raise AssertionError(f"hybrid_caption's S1/S2 differ from infer's: {res} vs {ours}")
+        failed = expect(res, stub, stub.text)
+        if stub.calls != failed:
+            raise AssertionError(f"the stub fallback was called {stub.calls} times, the gate "
+                                 f"failed {failed}")
+        res_blip = request("hybrid blip", lambda x: hybrid_infer.hybrid_caption(x, engine, blip),
+                           d)
+        expect(res_blip, blip, None)
+        out.append({"frames_dir": d, "stub": res, "blip": res_blip, "infer": ours})
+    tokenizer = engine.tokenizer
+    engine.tokenizer = _JunkDecodes(tokenizer)
+    try:
+        stub = _CountingFallback()
+        junk = [request(f"hybrid {kind} (gate fails)",
+                        lambda x, fb=fb: hybrid_infer.hybrid_caption(x, engine, fb), dirs[0])
+                for kind, fb in (("stub", stub), ("blip", blip))]
+    finally:
+        engine.tokenizer = tokenizer
+    if not (expect(junk[0], stub, stub.text) and expect(junk[1], blip, None) and stub.calls == 1):
+        raise AssertionError(f"candidates that fail the gate did not reach the fallbacks: {junk}")
+    seconds = time.perf_counter() - t0
+    cold_encoder = 12 * -(-QUALITY_LOOP_FRAMES // CHUNK)
+    _require_per_request(per_request, UNIFIED_LAUNCHES, "hybrid_caption's requests",
+                         cold_encoder=cold_encoder)
+    for o in out:
+        log(f"hybrid: {Path(o['frames_dir']).name}: stub {json.dumps(o['stub'])}; blip USED "
+            f"{json.dumps(o['blip']['USED'])}")
+    log(f"hybrid: on candidates that fail the gate: stub USED {json.dumps(junk[0]['USED'])}, "
+        f"blip USED {json.dumps(junk[1]['USED'])}")
+    log(f"hybrid: {len(per_request)} requests, each launching {UNIFIED_LAUNCHES} and "
+        f"encoder_attention {cold_encoder} (cold) or {WARM_ENCODER} (warm); ms a request: "
+        + ", ".join(f"{r['kind']}{' (cold)' if r['cold'] else ''} {r['ms']:.3f}" for r in timed)
+        + f"; {seconds:.2f} s, the engine's warm-up {warmup_s:.2f} s of it")
+    return {"videos": out, "junk": junk, "requests": timed, "seconds": seconds,
+            "warmup_s": warmup_s, "per_request": per_request}
 
 
 def _bench_phase(engine, dirs, root: Path) -> dict:
     """Phase 12: the measurement stack at full width (see the module
     docstring); the kernel counts set to 0 before it and read after."""
-    import os
-
     os.environ["BENCH_PIPELINE_DEPTH"] = "2"
     os.environ["BENCH_TRIALS"] = "3"
     from video_caption_tpu_torch.bench import accuracy_alignment, benchmark, driver, roofline
@@ -1696,8 +1909,6 @@ def _frame_path_phase(engine, dirs, root: Path, cpu_params, cpu_cfg) -> dict:
     """Phase 12: the cold request's frame path, the packed training wire and
     the retrieval entry points, each driven with the counts set to 0 just
     before it and read just after."""
-    import os
-
     import numpy as np
 
     from video_caption_tpu_torch.bench.roofline import measure_training_step

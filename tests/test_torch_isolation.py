@@ -3,8 +3,10 @@ fastapi, which the card's machine lacks, nor sacrebleu or NLTK, which it
 lacks too), and its own copies
 of the reference's JAX-free modules (config, datatypes, tokenizer, presets,
 post-processing, frame loading, the training data loader, the benchmark's
-report writers, BLEU scoring, the retrieval index, the best-of scoring and
-the synthetic dataset renderer) behave as the originals do. The 4:2:0 conversion (preprocessing/yuv420.py) is a rewrite in torch,
+report writers, BLEU scoring, the retrieval index, the best-of scoring,
+the synthetic dataset renderer, the hybrid gate, the fallback captioners'
+selection, human_eval, the frontend and the data scripts) behave as the
+originals do, and the host-code copies are the originals' text. The 4:2:0 conversion (preprocessing/yuv420.py) is a rewrite in torch,
 held against the original in tests/test_torch_yuv420.py."""
 import dataclasses
 import json
@@ -61,11 +63,16 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
         "             'retrieval.index', 'retrieval.features', 'retrieval.eval_retrieval',\n"
         "             'retrieval.query_video', 'cli.caption_video', 'tools.batch_infer',\n"
         "             'tools.batch_bestof', 'tools.export_checkpoint', 'tools.debug_chain',\n"
-        "             'tools.quality_loop'):\n"
+        "             'tools.quality_loop', 'tools.hybrid_infer', 'tools.caption_fallback',\n"
+        "             'tools.human_eval', 'frontend', 'frontend.api_client',\n"
+        "             'frontend.chainlit_app', 'scripts', 'scripts.extract_frames',\n"
+        "             'scripts.prepare_msvd', 'scripts.prepare_msrvtt', 'scripts.check_coverage',\n"
+        "             'scripts.plot_results', 'scripts.msvd_fetch_youtube', 'utils',\n"
+        "             'ops.temporal_pool'):\n"
         "    assert p.__name__ + '.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'video_caption_tpu', 'pydantic', 'fastapi', 'uvicorn', 'starlette', 'sacrebleu', "
-        "'nltk'))\n"
+        "'nltk', 'transformers'))\n"
         "assert not bad, bad\n"
         "assert len(names) > 20, names\n"
     )
@@ -82,17 +89,41 @@ def test_report_copy_is_the_jax_packages_file():
 @pytest.mark.parametrize("module,first,end", [
     ("tools/batch_bestof.py", "BAD_REGEX = ", "def main("),
     ("tools/quality_loop.py", "COLORS = {", "def train_stage3_lm("),
+    ("tools/hybrid_infer.py", "log = ", "def main("),
+    ("tools/caption_fallback.py", "log = ", "def make_blip_fallback("),
+    ("tools/caption_fallback.py", "def find_video_dirs(", "    captioner: Optional"),
 ])
 def test_host_code_copies_are_the_jax_modules_text(module, first, end):
     """batch_bestof's scoring (its regexes, lexicons, score_sentence,
-    pick_best, bestof_from_rows) and the quality loop's dataset renderer
-    (class_caption, _render_frame, make_synthetic_dataset) import nothing of
-    either package: the copies are the originals' text."""
+    pick_best, bestof_from_rows), the quality loop's dataset renderer
+    (class_caption, _render_frame, make_synthetic_dataset), hybrid_infer's
+    gate, selection and hybrid_caption, and the fallback captioners'
+    sampling, cleaners and selectors are the originals' text, the port's
+    imports in place of the JAX package's."""
     def block(package):
-        text = (REPO / package / module).read_text()
+        text = (REPO / package / module).read_text().replace("video_caption_tpu_torch",
+                                                             "video_caption_tpu")
         return text[text.index(first):text.index(end)]
 
     assert block("video_caption_tpu_torch") == block("video_caption_tpu")
+
+
+@pytest.mark.parametrize("module", [
+    "tools/human_eval.py", "frontend/__init__.py", "frontend/api_client.py",
+    "frontend/chainlit_app.py", "scripts/__init__.py", "scripts/extract_frames.py",
+    "scripts/prepare_msvd.py", "scripts/prepare_msrvtt.py", "scripts/check_coverage.py",
+    "scripts/plot_results.py", "scripts/msvd_fetch_youtube.py",
+])
+def test_whole_module_copies_are_the_jax_modules_text(module):
+    """Host modules that do no tensor work are copied whole: below the
+    module docstring each is the original's text, the port's imports in
+    place of the JAX package's."""
+    def code(package):
+        text = (REPO / package / module).read_text()
+        return text[text.index('"""', 3) + 3:].replace("video_caption_tpu_torch",
+                                                        "video_caption_tpu")
+
+    assert code("video_caption_tpu_torch") == code("video_caption_tpu")
 
 
 def test_bleu_copy_scores_as_the_jax_packages_module():

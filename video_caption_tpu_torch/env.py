@@ -22,6 +22,7 @@ class RuntimeNotReady(RuntimeError):
 
 
 _CORE_DEPS = ("torch", "numpy", "PIL")
+_FRONTEND_DEPS = ("httpx",)
 
 
 def _assert_importable(names: Iterable[str], group: str) -> None:
@@ -49,6 +50,13 @@ def assert_server_runtime_ready() -> None:
     """The port serves through its standard-library server
     (server/stdlib_server.py): the core dependencies are all it needs."""
     assert_core_runtime_ready()
+
+
+def assert_frontend_runtime_ready() -> None:
+    """The frontend's REST client (frontend/api_client.py) posts through
+    httpx; without it the client falls back to urllib, but this gate, as the
+    JAX package's, asks for httpx."""
+    _assert_importable(_FRONTEND_DEPS, "frontend")
 
 
 def nvidia_smi() -> Optional[str]:
