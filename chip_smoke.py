@@ -42,6 +42,19 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``unified_fused_request`` off (48 lm_head launches a request): kernels,
    device ms, replay ms, p50 and captions/s of both programs side by side;
    one request with the serving presets (its first: the capture included);
+4b. artifact, on phase 4's engine and graph: ``aot.export_request_program``
+   of the default engine (its seconds and the archive's MB), the weights,
+   a video and the noise of the live request graph's next replay saved,
+   then this script again in a fresh process (``--replay-artifact DIR``),
+   which imports the port's ``aot`` module and not the engine: it loads
+   the archive with ``AotRuntime`` (seconds) while phases 5-7 run, and
+   after phase 7 captures ``run`` into an ``aot.RequestGraph`` and replays
+   it; its ids must equal the live replay's for every group
+   (the sampled one included), its launches a replay those of the live
+   graph (12 / 1 / 24 / 276), and its device ms under torch.profiler are
+   printed beside the live graph's; then the eager request program's p50
+   with the kernel wrappers calling their CUDA implementations directly
+   and through their custom ops, in turns (direct, op, op, direct);
 5. decode configurations, each as in 4 (graph beside its eager twin): one
    engine with ``compile.use_pallas_decode_attention`` (and
    ``unified_fused_request`` off: the unified loop runs beam steps only and
@@ -187,6 +200,7 @@ PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import dataclasses
 import json
@@ -194,6 +208,7 @@ import math
 import os
 import re
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -216,6 +231,12 @@ GROUPED = "unified_fused_request"          # off: the request decodes group by g
 # a prefill and 23 beam steps of 12 layers) and of the grouped program
 UNIFIED_LAUNCHES = {"prefix_projector": 1, "lm_head": 24, "beam_attention": 276}
 GROUPED_LAUNCHES = {"prefix_projector": 1, "lm_head": 48, "beam_attention": 276}
+# launches of one replay of the default engine's request graph (warm: the
+# pixel program), the live one and the one loaded from its artifact
+ARTIFACT_LAUNCHES = {"encoder_attention": 12, **UNIFIED_LAUNCHES}
+ARTIFACT = "request.pt2"
+ARTIFACT_TIMEOUT_S = 600    # the fresh process: load, capture, replays
+EAGER_REQUESTS = 5          # eager requests a turn (direct, op, op, direct)
 # encoder_attention a request: 12 layers over the whole video on a warm
 # request (the pixel graph), 12 a chunk of 8 frames on a cold one (the
 # overlapped path's trunk graphs)
@@ -276,7 +297,12 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU")
     parser.add_argument("--report", help="write the details as JSON to this path")
+    parser.add_argument("--replay-artifact", metavar="DIR",
+                        help="(phase 4b's fresh process) load DIR's request artifact, capture "
+                             "and replay it, and write DIR/replay.json")
     args = parser.parse_args()
+    if args.replay_artifact:
+        return _replay_artifact(Path(args.replay_artifact))
     run_t0 = time.perf_counter()
     # phase 14's BLIP fallback names a hub model: where transformers is
     # installed, it must fail on the missing weights and not reach for a hub
@@ -353,7 +379,7 @@ def main() -> int:
 
     lap("3 kernel checks")
     # ---- 4. engine on the main path
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stop:
         all_dirs = make_videos(Path(tmp), max(BUCKETS), 24, IMAGE_SIZE, SEED)
         dirs = all_dirs[:3]
         ckpt = str(Path(tmp) / "no-checkpoint.pt")      # absent: seeded random weights
@@ -417,6 +443,10 @@ def main() -> int:
         report["serving"] = {"latency_s": s_lat, "capture_s": s_capture, "result": served}
 
         lap("4 engine")
+        # ---- 4b. the serialized request artifact: exported here, loaded by
+        # a fresh process while phases 5-7 run, replayed there after them
+        artifact = _start_artifact(engine, dirs, Path(tmp), stop)
+        lap("4b artifact: export")
         # ---- 5. the fused K=1 decode configurations and the deferred cache write
         natural_ms = {"default": _natural_group_ms(engine, dirs[0])}
         log(f"engine default: natural group alone {natural_ms['default']:.1f} ms (median of 3)")
@@ -507,6 +537,8 @@ def main() -> int:
             Path(tmp))
 
         lap("7 decode configurations, eval")
+        report["artifact"] = _finish_artifact(engine, artifact)
+        lap("4b artifact: the fresh process's replay, eager p50")
         # ---- 8. infer_batch at every bucket, graph beside eager
         report["batches"] = _batch_phase(engine, all_dirs)
 
@@ -664,6 +696,174 @@ def _graph_and_eager(label, engine, dirs, count):
         f"{prof['wrapper_launches']} = counters' delta; launches over the graph's requests "
         f"{g['launches']}")
     return {**out, "ids_identical": same_ids, "unified": unified, "identical_captions": same}
+
+
+def _start_artifact(engine, dirs, root: Path, stop: contextlib.ExitStack) -> dict:
+    """Phase 4b, first half: the default engine's request program exported;
+    the live graph's ids on a known draw and one replay profiled; the
+    weights, video and noise saved; the fresh process started, which loads
+    the artifact while phases 5-7 run (on other cores) and waits for
+    :func:`_finish_artifact` before it loads the inputs, captures or
+    replays. ``stop`` kills it if the run fails first."""
+    from video_caption_tpu_torch import aot
+    from video_caption_tpu_torch.cli.profile_request import profile_call
+
+    work = root / "artifact"
+    work.mkdir()
+    t0 = time.perf_counter()
+    path = Path(aot.export_request_program(engine, str(work / ARTIFACT)))
+    export_s = time.perf_counter() - t0
+    size_mb = path.stat().st_size / 1e6
+    log(f"artifact: exported in {export_s:.1f} s, {size_mb:.1f} MB ({path.name})")
+
+    video = engine.load_video(dirs[0])
+    graph = engine.request_graph(video)
+    live_launches = {m.__name__.rsplit(".", 1)[-1]: n for m, n in graph.launches.items()}
+    if live_launches != ARTIFACT_LAUNCHES:
+        raise AssertionError(f"the live request graph launches {live_launches}, not "
+                             f"{ARTIFACT_LAUNCHES}")
+    state = engine.generator.get_state()
+    noises = engine.request_noise(1)            # what the next replay draws
+    engine.generator.set_state(state)
+    live = graph.replay(video).cpu()
+    live_prof = profile_call(lambda: graph.replay(video))
+    t0 = time.perf_counter()
+    torch.save({"params": engine.params, "video": video, "noises": noises},
+               work / "inputs.pt")
+    save_s = time.perf_counter() - t0
+    out = (work / "fresh_process.log").open("w")
+    stop.callback(out.close)
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--replay-artifact",
+                             str(work)], stdin=subprocess.PIPE, stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    stop.callback(proc.wait)
+    stop.callback(proc.kill)
+    return {"work": work, "proc": proc, "started": time.perf_counter(), "video": video,
+            "live": live, "report": {
+                "export_s": export_s, "size_mb": size_mb, "save_inputs_s": save_s,
+                "live_launches": live_launches, "live_device_ms": live_prof["device_ms"],
+                "live_kernels": live_prof["kernels"],
+                "live_busy_share": live_prof["busy_share"]}}
+
+
+def _finish_artifact(engine, pending: dict) -> dict:
+    """Phase 4b, second half: the fresh process, its artifact loaded, is let
+    on the card (capture, replays, profile) and waited for; its ids must
+    equal the live graph's and its launches a replay the live graph's. Then
+    the eager request program's p50 with the wrappers calling their CUDA
+    implementations directly (as before the custom ops) and through the
+    ops, in turns."""
+    from video_caption_tpu_torch.engine import InferenceEngine
+
+    work, proc, live, rep = pending["work"], pending["proc"], pending["live"], pending["report"]
+    waited = time.perf_counter()
+    proc.communicate("go\n", timeout=ARTIFACT_TIMEOUT_S)
+    rep.update(fresh_process_s=time.perf_counter() - pending["started"],
+               waited_s=time.perf_counter() - waited)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the fresh process failed (exit {proc.returncode}):\n"
+                           f"{(work / 'fresh_process.log').read_text()[-6000:]}")
+    got = json.loads((work / "replay.json").read_text())
+    ids = torch.load(work / "replay_ids.pt")
+    sizes = [len(idxs) * dp.max_new_tokens for dp, idxs, _, _ in engine._decode_groups()]
+    same = [bool(torch.equal(a, b)) for a, b in zip(ids.split(sizes), live.split(sizes))]
+    live_launches = rep["live_launches"]
+    log(f"artifact: fresh process {rep['fresh_process_s']:.1f} s ({rep['waited_s']:.1f} s of it "
+        f"after phase 7; inputs saved in {rep['save_inputs_s']:.1f} s): load "
+        f"{got['load_s']:.1f} s, capture {got['capture_s']:.2f} s after a "
+        f"{got['warmup_s']:.2f} s run; ids identical to the live graph's by group {same}; "
+        f"launches a replay {got['launches']} (live {live_launches}); profiled "
+        f"{got['profiled_launches']}; one replay {got['device_ms']:.2f} ms device, "
+        f"{got['kernels']} kernels, busy {got['busy_share']:.1%} (live graph "
+        f"{rep['live_device_ms']:.2f} ms, {rep['live_kernels']} kernels, busy "
+        f"{rep['live_busy_share']:.1%}); engine imported {got['engine_imported']}, JAX "
+        f"imported {got['jax_imported']}")
+    if got["engine_imported"] or got["jax_imported"]:
+        raise AssertionError("the fresh process imported the engine or JAX")
+    if not (all(same) and ids.shape == live.shape and got["replays_identical"]):
+        raise AssertionError(f"the artifact's ids differ from the live graph's: {same}")
+    if got["launches"] != live_launches:
+        raise AssertionError(f"the artifact's replay launched {got['launches']}, the live "
+                             f"graph {live_launches}")
+
+    cfg = engine.config
+    eager = InferenceEngine(dataclasses.replace(cfg, compile=dataclasses.replace(
+        cfg.compile, aot_request_program=False)), params=engine.params, seed=SEED, device="cuda")
+    video = pending["video"]
+    eager.request_ids(video)
+    turns = []
+    for direct in (True, False, False, True):
+        with _direct_kernels(direct):
+            lat = []
+            for _ in range(EAGER_REQUESTS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eager.request_ids(video)
+                lat.append(time.perf_counter() - t0)
+        turns.append(("direct" if direct else "op", statistics.median(lat)))
+    p50 = {kind: statistics.median([t for k, t in turns if k == kind])
+           for kind in ("direct", "op")}
+    log(f"artifact: eager request program p50 {p50['direct'] * 1000:.1f} ms with direct calls, "
+        f"{p50['op'] * 1000:.1f} ms through the custom ops (turns "
+        f"{[(k, round(t * 1000, 1)) for k, t in turns]} ms, medians of {EAGER_REQUESTS})")
+    return {**rep, **got, "ids_identical_by_group": same, "eager_p50_direct_s": p50["direct"],
+            "eager_p50_op_s": p50["op"], "eager_turns": turns}
+
+
+@contextlib.contextmanager
+def _direct_kernels(direct: bool):
+    """With ``direct``, every kernel wrapper calls its CUDA implementation
+    itself instead of its custom op (the path of the wrappers before the
+    ops were registered); restored on exit."""
+    from video_caption_tpu_torch import aot
+
+    saved = {m: m._op for m in aot.KERNEL_MODULES}
+    if direct:
+        for m in aot.KERNEL_MODULES:
+            m._op = m._cuda
+    try:
+        yield
+    finally:
+        for m, op in saved.items():
+            m._op = op
+
+
+def _replay_artifact(work: Path) -> int:
+    """Phase 4b's fresh process: imports the port's ``aot`` module (which
+    registers the kernels' custom ops) and the profiler helper, never the
+    engine; loads ``work``'s artifact, then, once a line arrives on its
+    standard input, the inputs, captures the loaded program into a
+    RequestGraph, replays it and writes the ids and the measurements into
+    ``work``."""
+    from video_caption_tpu_torch import aot
+    from video_caption_tpu_torch.cli.profile_request import profile_call
+
+    t0 = time.perf_counter()
+    runtime = aot.AotRuntime()
+    runtime.load("request", str(work / ARTIFACT))
+    load_s = time.perf_counter() - t0
+    if not sys.stdin.readline():    # the parent's go (the card is free), or its end
+        return 1
+    inputs = torch.load(work / "inputs.pt", map_location="cuda")
+    params, video, noises = inputs["params"], inputs["video"], inputs["noises"]
+
+    def request(v):
+        return torch.cat([x.reshape(-1) for x in runtime.run("request", params, v, noises)])
+
+    graph = aot.RequestGraph.capture(request, video)
+    ids = graph.replay(video).clone()
+    again = graph.replay(video)
+    prof = profile_call(lambda: graph.replay(video))
+    torch.save(ids.cpu(), work / "replay_ids.pt")
+    (work / "replay.json").write_text(json.dumps({
+        "load_s": load_s, "warmup_s": graph.warmup_s, "capture_s": graph.capture_s,
+        "launches": {m.__name__.rsplit(".", 1)[-1]: n for m, n in graph.launches.items()},
+        "profiled_launches": prof["wrapper_launches"], "device_ms": prof["device_ms"],
+        "kernels": prof["kernels"], "busy_share": prof["busy_share"],
+        "replays_identical": bool(torch.equal(ids, again)),
+        "engine_imported": "video_caption_tpu_torch.engine" in sys.modules,
+        "jax_imported": any(m.split(".")[0] in ("jax", "video_caption_tpu") for m in sys.modules)}))
+    return 0
 
 
 def _ms(seconds) -> str:

@@ -11,6 +11,7 @@ import torch
 
 from torch_kernel_geometries import (BEAM_GEOMETRIES, DECODE_GEOMETRIES, POOL_GEOMETRIES,
                                      PROJECTOR_GEOMETRIES)
+from torch_op_cases import CASE_IDS, cases, to_meta
 from video_caption_tpu_torch.ops import selfcheck
 
 pytestmark = pytest.mark.cuda
@@ -409,6 +410,26 @@ def test_fused_pool_backward(cuda, mode):
 @pytest.mark.parametrize("rows", [1, 4])
 def test_prefix_projector_backward(cuda, rows):
     _assert_ok(selfcheck.check_prefix_projector_backward(rows, cuda))
+
+
+@pytest.mark.parametrize("case_id", CASE_IDS)
+def test_custom_op_on_cuda_against_the_plain_version(cuda, case_id):
+    """``torch.ops.vct.<op>`` on CUDA tensors launches the kernel (its
+    wrapper's counter moves by one) and agrees with the plain version on the
+    same inputs; the op's fake implementation on meta tensors gives the real
+    output's shape, strides and dtype."""
+    from video_caption_tpu_torch import aot
+
+    case = next(c for c in cases(cuda) if c.id == case_id)
+    before = sum(aot.launch_counts().values())
+    got = case.run()
+    torch.cuda.synchronize()
+    assert sum(aot.launch_counts().values()) == before + 1
+    for a, b in zip(got, case.run_plain()):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+    real = case.op(*case.fresh_args())
+    fake = case.op(*to_meta(case.fresh_args()))
+    assert (fake.shape, fake.stride(), fake.dtype) == (real.shape, real.stride(), real.dtype)
 
 
 def test_kernel_launch_counters(cuda):

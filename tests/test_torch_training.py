@@ -201,18 +201,18 @@ def test_remat_reruns_the_attention_forward():
     cfg = dataclasses.replace(_vit(GAP_VIT), remat=True)
     params = vt.init_vit_params(torch.Generator().manual_seed(0), cfg, "cpu")
     calls = []
-    forward = ea._EncoderAttention.forward
+    forward = ea.encoder_attention_ref      # the op's CPU kernel
 
-    def counting(ctx, qkv, num_heads):
+    def counting(qkv, num_heads):
         calls.append(qkv.shape)
-        return forward(ctx, qkv, num_heads)
+        return forward(qkv, num_heads)
 
-    ea._EncoderAttention.forward = staticmethod(counting)
+    ea.encoder_attention_ref = counting
     try:
         value_and_grad(lambda p, v: vt.vit_encode(p, v, cfg).sum(), params,
                        torch.from_numpy(_video(seed=6)))
     finally:
-        ea._EncoderAttention.forward = staticmethod(forward)
+        ea.encoder_attention_ref = forward
     assert len(calls) == 2 * cfg.depth
 
 

@@ -1,4 +1,5 @@
-"""Captured request programs: the counterpart of video_caption_tpu/aot.py.
+"""Captured request programs and the serialized request artifact: the
+counterpart of video_caption_tpu/aot.py.
 
 On the TPU the JAX package lowers and compiles its request program once
 (``jax.jit(...).lower().compile()``) and calls the executable for every
@@ -15,15 +16,30 @@ one host call, instead of the host issuing each of the request's kernels.
   of each.
 
 A captured graph holds raw device pointers, so it cannot be written to
-disk: the JAX package's serialized artifact (``export_stablehlo``,
-``export_request_program``, ``AotRuntime``) is not ported. Graphs exist
-only on CUDA; a CPU tensor is refused.
+disk. The serialized artifact is a ``torch.export`` archive (``.pt2``), not
+StableHLO: the program's operator graph, in which each hand-written kernel
+is a call of its custom op (``torch.ops.vct.*``, registered when the
+kernel modules are imported, as this module does).
+
+- :func:`export_program` serializes a function of tensors (the
+  counterpart of ``export_stablehlo``).
+- :func:`export_request_program` serializes the engine's request program
+  with the weights, the uint8 video and the sampled groups' Gumbel noise
+  as inputs (the JAX package's takes ``(params, video, key)``): no weights
+  and no generator are baked in, so the artifact's ids equal the live
+  engine's on the same noise.
+- :class:`AotRuntime` loads artifacts and runs them; a loaded request
+  program can be captured into a :class:`RequestGraph` like the live one.
+
+An artifact runs on the device type it was exported on. Graphs exist only
+on CUDA; a CPU tensor is refused.
 """
 from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -177,3 +193,68 @@ def build_engine(config=None, stages: Tuple[str, ...] = ("encoder", "projector",
         capture_stage("decoder", lambda e: greedy_or_sample(
             params["decoder"], mc.gpt2, e, dp, engine.generator), embeds)
     return report
+
+
+class _Program(torch.nn.Module):
+    """A function of tensors as the module ``torch.export`` takes."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def export_program(fn: Callable, args: Tuple, out_path: str) -> str:
+    """Trace ``fn(*args)`` with ``torch.export`` (under ``no_grad``) and
+    write the program to ``out_path`` as a ``.pt2`` archive; returns the
+    path. The shapes of ``args`` are fixed in it, their values are not
+    stored; tensors ``fn`` reaches other than through ``args`` are stored
+    in it as constants."""
+    with torch.no_grad():
+        exported = torch.export.export(_Program(fn), tuple(args))
+    exported.example_inputs = None      # else the archive stores args (the weights) too
+    path = Path(out_path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.export.save(exported, str(path))
+    log.info("exported %d bytes of torch.export program to %s", path.stat().st_size, path)
+    return str(path)
+
+
+def export_request_program(engine, out_path: str) -> str:
+    """Serialize the engine's single-video request program (the program its
+    request graph captures, ``engine._fused_infer_program``) from its core
+    ``core(params, video, noises)``: the weights (``engine.params``' tree),
+    a uint8 video [1,T,3,S,S] and ``engine.request_noise(1)``'s tuple are
+    the artifact's inputs. Run it with ``AotRuntime.run(name, params,
+    video, noises)``. Raises ValueError for an engine with early stop, whose
+    request reads its stop condition on the host and is never captured."""
+    program, group_list = engine._fused_infer_program()
+    if any(dp.early_stop for dp, *_ in group_list):
+        raise ValueError("early_stop_decode: the request reads its stop condition on the host "
+                         "before every step, so it has no fixed program to export")
+    c = engine.config
+    video = torch.zeros((1, c.num_frames, 3, c.image_size, c.image_size), dtype=torch.uint8,
+                        device=engine.device)
+    noises = engine.request_noise(1, torch.Generator(device=engine.device).manual_seed(0))
+    return export_program(program.core, (engine.params, video, noises), out_path)
+
+
+class AotRuntime:
+    """Loads serialized programs and runs them (core/trt/runtime.py analog)."""
+
+    def __init__(self):
+        self._programs: Dict[str, Any] = {}
+
+    def load(self, name: str, path: str) -> None:
+        """Load the ``.pt2`` archive at ``path`` under ``name``."""
+        self._programs[name] = torch.export.load(str(path)).module()
+
+    def run(self, name: str, *args):
+        """The outputs of program ``name`` on ``args`` (in inference mode);
+        KeyError if no program of that name is loaded."""
+        if name not in self._programs:
+            raise KeyError(f"program {name!r} not loaded")
+        with torch.inference_mode():
+            return self._programs[name](*args)

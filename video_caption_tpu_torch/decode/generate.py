@@ -18,7 +18,9 @@ saves the most steps; the ids are those of the full-length loop at any
 interval, since finished rows are frozen to EOS. A sampled decode draws the
 Gumbel noise of all its steps at once before its first step
 (``sample_noise``), as the unified decode does for each sampled group, so
-both take the same draws.
+both take the same draws; a caller that drew it already (the engine's
+request program, whose exported form takes the noise as an input) passes
+it in, and nothing is drawn.
 
 Selection takes the candidate-set path (``logits_process.topk_processed``)
 where it is exact, and the full-vocab processor chain otherwise
@@ -160,12 +162,14 @@ def sample_noise(dp: DecodeParams, rows: int, vocab_padded: int,
 
 def greedy_or_sample(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor,
                      dp: DecodeParams, generator: Optional[torch.Generator] = None,
-                     prefill_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     prefill_mask: Optional[torch.Tensor] = None,
+                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy or sampled decode over the contiguous cache (the flat one with
     ``cfg.use_pallas_decode_layer``; the split one with
     ``cfg.sample_split_cache`` where neither fused-decode switch is on, the
     JAX package's rule); returns ids [B, max_new_tokens] (EOS after a row
-    finishes)."""
+    finishes). A sampled decode takes ``noise`` (``sample_noise``'s shape)
+    where it is given, else draws it from ``generator``."""
     b, s0, _ = inputs_embeds.shape
     n = dp.max_new_tokens
     device = inputs_embeds.device
@@ -177,7 +181,8 @@ def greedy_or_sample(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor,
         # does, once, so a captured request replays no cast)
         params = g2.prepare_decode_params(params, cfg)
     wte_t = g2.lm_head_t(params, cfg)
-    noise = sample_noise(dp, b, wte_t.shape[1], generator, device)
+    if noise is None:
+        noise = sample_noise(dp, b, wte_t.shape[1], generator, device)
     (logits, wmax, _, _), cache, valid, row_len = _prefill(
         params, cfg, inputs_embeds, s0 if split else s0 + n, prefill_mask, wte_t, split=split,
         row_stats=False)
@@ -330,7 +335,8 @@ def beam_search(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor, dp: Dec
 
 def generate_prefixed(params, cfg: g2.GPT2Config, prefix: torch.Tensor,
                       prompt_ids: torch.Tensor, prompt_mask: torch.Tensor, dp: DecodeParams,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """prefix [B,P,H] + LEFT-padded prompts [B,L] -> ids [B, max_new_tokens].
     Each row is [prefix, pad..., prompt]; the pads carry mask 0, which is
     attention- and position-equivalent to left padding."""
@@ -338,15 +344,16 @@ def generate_prefixed(params, cfg: g2.GPT2Config, prefix: torch.Tensor,
     embeds = torch.cat([prefix.to(tok.dtype), tok], dim=1)
     mask = torch.cat([torch.ones(prefix.shape[:2], dtype=torch.int32, device=prefix.device),
                       prompt_mask.to(torch.int32)], dim=1)
-    return generate(params, cfg, embeds, dp, generator, mask)
+    return generate(params, cfg, embeds, dp, generator, mask, noise)
 
 
 def generate(params, cfg: g2.GPT2Config, inputs_embeds: torch.Tensor, dp: DecodeParams,
              generator: Optional[torch.Generator] = None,
-             prefill_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Beam search when the policy has beams, else greedy or sampled decode;
-    ids [B, max_new_tokens]."""
+             prefill_mask: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Beam search when the policy has beams, else greedy or sampled decode
+    (a sampled one on ``noise`` where it is given); ids [B, max_new_tokens]."""
     if dp.num_beams > 1:
         return beam_search(params, cfg, inputs_embeds, dp, prefill_mask)
-    return greedy_or_sample(params, cfg, inputs_embeds, dp, generator, prefill_mask)
+    return greedy_or_sample(params, cfg, inputs_embeds, dp, generator, prefill_mask, noise)
 

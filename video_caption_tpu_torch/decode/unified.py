@@ -17,7 +17,8 @@ keeps a request out of this loop (the engine's ``_unified_eligible``).
 The ids equal ``generate_prefixed`` run group by group, for any number of
 sampled groups: a sampled group draws its Gumbel noise for all of its steps
 at once, in group order, as ``greedy_or_sample`` does, so both programs take
-the same draws from one generator.
+the same draws from one generator; a caller that drew the noise already
+passes it in (``noises``), and nothing is drawn.
 """
 from __future__ import annotations
 
@@ -57,14 +58,18 @@ def _prefill_rows(wte, prefix, prompts, l_max):
 def generate_unified(params, cfg: g2.GPT2Config, prefix: torch.Tensor,
                      prompts: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                      dps: Sequence[DecodeParams],
-                     generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
+                     generator: Optional[torch.Generator] = None,
+                     noises: Optional[Sequence[Optional[torch.Tensor]]] = None
+                     ) -> Tuple[torch.Tensor, ...]:
     """Decode V videos (prefix [V, P, H]) under every policy group at once.
 
     ``prompts`` holds per group its LEFT-padded (ids [n_g, L_g], mask
     [n_g, L_g]); ``dps`` its policy. Group g has I_g = V * n_g instances
     (video-major) and returns ids [I_g, max_new_tokens_g], equal to
-    ``generate_prefixed`` on that group's rows. Makes no host
-    synchronisation (a CUDA graph can capture it)."""
+    ``generate_prefixed`` on that group's rows. ``noises`` holds, per
+    group, its ``sample_noise`` (None for a group that samples nothing);
+    without it the sampled groups' noise is drawn from ``generator``. Makes
+    no host synchronisation (a CUDA graph can capture it)."""
     device = prefix.device
     wte = params["wte"]
     l_max = max(int(ids.shape[1]) for ids, _ in prompts)
@@ -73,9 +78,10 @@ def generate_unified(params, cfg: g2.GPT2Config, prefix: torch.Tensor,
     embeds, pmask, n_inst = _prefill_rows(wte, prefix, prompts, l_max)
     r_tot = sum(n_inst) * k_max
     wte_t = g2.lm_head_t(params, cfg)
-    # the noise of every sampled group, drawn first and in group order
-    noises = [sample_noise(dp, n, wte_t.shape[1], generator, device)
-              for dp, n in zip(dps, n_inst)]
+    if noises is None:
+        # the noise of every sampled group, drawn first and in group order
+        noises = [sample_noise(dp, n, wte_t.shape[1], generator, device)
+                  for dp, n in zip(dps, n_inst)]
 
     # one prefill for every instance of every group, with the row statistics
     # beam selection needs; every row of a block starts from its instance's

@@ -70,7 +70,10 @@ wire a load took. Without the native loader every frame travels as RGB.
 ``self.memory.oom_guard()``, as in the JAX package: a device OOM logs a
 snapshot of the device's memory, then re-raises.
 
-Not ported yet: the serialized request artifact.
+The request program's core takes the weights, the video and the sampled
+groups' noise as inputs and holds no generator (``program.core``; the
+program draws the noise, ``request_noise``, then runs it): that core is
+what ``aot.export_request_program`` serializes.
 """
 from __future__ import annotations
 
@@ -92,7 +95,8 @@ from video_caption_tpu_torch.aot import RequestGraph
 from video_caption_tpu_torch.config import InferenceConfig
 from video_caption_tpu_torch.datatypes import CaptionCandidates, InferenceResult
 from video_caption_tpu_torch.decode import unified
-from video_caption_tpu_torch.decode.generate import DecodeParams, generate, generate_prefixed
+from video_caption_tpu_torch.decode.generate import (DecodeParams, generate, generate_prefixed,
+                                                    sample_noise)
 from video_caption_tpu_torch.decode.presets import preset_to_kwargs
 from video_caption_tpu_torch.decode.tokenizer import get_tokenizer
 from video_caption_tpu_torch.postprocessing.candidate_ranker import select_best
@@ -380,12 +384,21 @@ class InferenceEngine:
         every video of prefix [V,P,H]: ids [V*n_g, N], video-major. A
         sampled group draws from ``generator``, the engine's by default (a
         measurement passes a throwaway one)."""
-        v = prefix.shape[0]
         with torch.inference_mode():
-            return generate_prefixed(self.params["decoder"], self.model_cfg.gpt2,
-                                     prefix.repeat_interleave(ids.shape[0], dim=0),
-                                     ids.repeat(v, 1), mask.repeat(v, 1), dp,
-                                     generator or self.generator)
+            return _decode_group(self.params["decoder"], self.model_cfg.gpt2, prefix, dp, ids,
+                                 mask, generator=generator or self.generator)
+
+    def request_noise(self, videos: int, generator: Optional[torch.Generator] = None
+                      ) -> Tuple[Optional[torch.Tensor], ...]:
+        """The Gumbel noise of one run of the request program over ``videos``
+        videos: for each decode group in order its ``sample_noise`` (None
+        for a group that samples nothing), drawn in that order from
+        ``generator``, the engine's by default, as the decodes would draw it
+        themselves."""
+        vp = g2.padded_vocab(self.model_cfg.gpt2)
+        generator = generator or self.generator
+        return tuple(sample_noise(dp, videos * len(idxs), vp, generator, self.device)
+                     for dp, idxs, _, _ in self._decode_groups())
 
     def _make_program(self, fused: bool, from_feats: bool = False):
         """(program, group_list): ``program(video)`` takes the uploaded uint8
@@ -396,23 +409,35 @@ class InferenceEngine:
         group by group. It makes no host synchronisation and no
         host-to-device copy, so a CUDA graph can capture it (counterpart of
         the JAX engine's ``_fused_infer_program`` and
-        ``_fused_feats_program``)."""
+        ``_fused_feats_program``).
+
+        ``program.core(params, video, noises)`` is the same program with no
+        generator inside: the weights and the noise of ``request_noise``
+        are its inputs. ``program(video)`` draws the noise, then runs
+        ``core`` on the engine's weights, so its ids are those of ``core``
+        on the same draws."""
         group_list = self._decode_groups()
         use_unified = self._unified_eligible(group_list, fused_program=fused)
-        params, model_cfg, generator = self.params, self.model_cfg, self.generator
+        params, model_cfg = self.params, self.model_cfg
         to_prefix = cm.frames_to_prefix if from_feats else cm.video_to_prefix
+
+        def core(params: dict, video: torch.Tensor,
+                 noises: Sequence[Optional[torch.Tensor]]) -> Tuple[torch.Tensor, ...]:
+            prefix = to_prefix(params, video, model_cfg)                    # [V,P,H]
+            if use_unified:
+                return unified.generate_unified(
+                    params["decoder"], model_cfg.gpt2, prefix,
+                    [(ids, mask) for _, _, ids, mask in group_list],
+                    [dp for dp, *_ in group_list], noises=noises)
+            return tuple(_decode_group(params["decoder"], model_cfg.gpt2, prefix, dp, ids, mask,
+                                       noise=noise)
+                         for (dp, _, ids, mask), noise in zip(group_list, noises))
 
         def program(video: torch.Tensor) -> Tuple[torch.Tensor, ...]:
             with torch.inference_mode():
-                prefix = to_prefix(params, video, model_cfg)                # [V,P,H]
-                if use_unified:
-                    return unified.generate_unified(
-                        params["decoder"], model_cfg.gpt2, prefix,
-                        [(ids, mask) for _, _, ids, mask in group_list],
-                        [dp for dp, *_ in group_list], generator)
-                return tuple(self.run_decode_group(prefix, dp, ids, mask)
-                             for dp, _, ids, mask in group_list)
+                return core(params, video, self.request_noise(video.shape[0]))
 
+        program.core = core
         return program, group_list
 
     def _fused_infer_program(self):
@@ -806,6 +831,18 @@ def _result(texts: Sequence[str]) -> InferenceResult:
     candidates = CaptionCandidates(s1=texts[0], s2=texts[1], s3=texts[2])
     best_key, best_text, _ = select_best(list(candidates.items()))
     return InferenceResult(candidates=candidates, best_key=best_key, best_text=best_text)
+
+
+def _decode_group(decoder: dict, cfg: g2.GPT2Config, prefix: torch.Tensor, dp: DecodeParams,
+                  ids: torch.Tensor, mask: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One policy group (prompt ids and mask [n_g, L]) for every video of
+    prefix [V,P,H]: ids [V*n_g, N], video-major; a sampled group on
+    ``noise`` where it is given, else drawing from ``generator``."""
+    v = prefix.shape[0]
+    return generate_prefixed(decoder, cfg, prefix.repeat_interleave(ids.shape[0], dim=0),
+                             ids.repeat(v, 1), mask.repeat(v, 1), dp, generator, noise)
 
 
 def _pack(ids: Tuple[torch.Tensor, ...]) -> torch.Tensor:

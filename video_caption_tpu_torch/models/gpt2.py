@@ -148,13 +148,19 @@ def init_cache(cfg: GPT2Config, batch: int, max_len: int, device,
     return {"kv": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
+def padded_vocab(cfg: GPT2Config) -> int:
+    """Vp: the vocabulary rounded up to a multiple of the 128-column
+    selection window (the JAX package rounds further to 1408 multiples for
+    its TPU chunking; that does not carry over)."""
+    return -(-cfg.vocab_size // WINDOW) * WINDOW
+
+
 def lm_head_t(params: Params, cfg: GPT2Config) -> torch.Tensor:
-    """Transposed LM head [H, Vp] in the compute dtype, Vp = vocab rounded up
-    to a multiple of the 128-column selection window (the JAX package rounds
-    further to 1408 multiples for its TPU chunking; that does not carry
-    over). Pad columns are zero; the kernel masks their logits to -inf."""
+    """Transposed LM head [H, Vp] in the compute dtype, Vp =
+    ``padded_vocab(cfg)``. Pad columns are zero; the kernel masks their
+    logits to -inf."""
     v = cfg.vocab_size
-    vp = -(-v // WINDOW) * WINDOW
+    vp = padded_vocab(cfg)
     wte_t = params["wte"].to(cfg.dtype).t()
     return F.pad(wte_t, (0, vp - v)) if vp != v else wte_t.contiguous()
 

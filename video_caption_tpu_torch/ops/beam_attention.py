@@ -14,6 +14,10 @@ Two modes, as in the TPU kernel:
 - deferred (``k_new``/``v_new`` given, GPT2Config.deferred_cache_write):
   column t of the cache is stale, the cache mask is strict (nn < t) and the
   step's own K/V join the softmax as one extra "self" column, last.
+
+The kernel is the custom op ``vct::beam_attention`` (``k_new``/``v_new``
+optional): its CPU kernel is the plain version, its CUDA kernel the checks
+and the launch, its fake implementation the output's shape from q's.
 """
 from __future__ import annotations
 
@@ -191,29 +195,18 @@ def _require_rows(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}'s rows must start on 16-byte boundaries")
 
 
-def beam_attention(q: torch.Tensor, gkv: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
-                   valid: torch.Tensor, anc: torch.Tensor, t: int, num_beams: int,
-                   num_heads: int, k_new: Optional[torch.Tensor] = None,
-                   v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention output [R, H] for one layer of a beam step.
+@torch.library.custom_op("vct::beam_attention", mutates_args=(), device_types="cpu")
+def _op(q: torch.Tensor, gkv: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+        valid: torch.Tensor, anc: torch.Tensor, t: int, num_beams: int, num_heads: int,
+        k_new: Optional[torch.Tensor], v_new: Optional[torch.Tensor]) -> torch.Tensor:
+    return beam_attention_ref(q, gkv, pk, pv, valid, anc, t, num_beams, num_heads, k_new, v_new)
 
-    q [R, H] (R = B*K; rows may be strided, the last dim contiguous), gkv
-    [N, 2, R, H] this layer's generated cache, pk/pv [B, S0, H] this layer's
-    prefill K/V, valid [B, S0] int32 left-pad flags, anc [R, N] int32
-    ancestry (row indices local to the R rows), t the current step. Without
-    ``k_new``/``v_new`` step t is already written in gkv; with them
-    (deferred mode, both [R, H] in q's dtype, strided like q) column t is
-    stale and they are the step's own K/V.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    takes float32 or bfloat16, head dim 64, up to MAX_BEAMS beams and
-    MAX_PREFILL prefill columns, and raises on anything else."""
+@_op.register_kernel("cuda")
+def _cuda(q: torch.Tensor, gkv: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+          valid: torch.Tensor, anc: torch.Tensor, t: int, num_beams: int, num_heads: int,
+          k_new: Optional[torch.Tensor], v_new: Optional[torch.Tensor]) -> torch.Tensor:
     global launches
-    if (k_new is None) != (v_new is None):
-        raise ValueError("k_new and v_new come together (deferred mode) or not at all")
-    if q.device.type == "cpu":
-        return beam_attention_ref(q, gkv, pk, pv, valid, anc, t, num_beams, num_heads,
-                                  k_new, v_new)
     for name, x in (("gkv", gkv), ("pk", pk), ("pv", pv), ("valid", valid), ("anc", anc)):
         build.require_cuda(x, name)
     _require_rows(q, "q")
@@ -261,3 +254,33 @@ def beam_attention(q: torch.Tensor, gkv: torch.Tensor, pk: torch.Tensor, pv: tor
     launches += 1
     launches_by_beams[num_beams] = launches_by_beams.get(num_beams, 0) + 1
     return out
+
+
+@_op.register_fake
+def _fake(q: torch.Tensor, gkv: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+          valid: torch.Tensor, anc: torch.Tensor, t: int, num_beams: int, num_heads: int,
+          k_new: Optional[torch.Tensor], v_new: Optional[torch.Tensor]) -> torch.Tensor:
+    return q.new_empty(q.shape)
+
+
+def beam_attention(q: torch.Tensor, gkv: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                   valid: torch.Tensor, anc: torch.Tensor, t: int, num_beams: int,
+                   num_heads: int, k_new: Optional[torch.Tensor] = None,
+                   v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention output [R, H] for one layer of a beam step.
+
+    q [R, H] (R = B*K; rows may be strided, the last dim contiguous), gkv
+    [N, 2, R, H] this layer's generated cache, pk/pv [B, S0, H] this layer's
+    prefill K/V, valid [B, S0] int32 left-pad flags, anc [R, N] int32
+    ancestry (row indices local to the R rows), t the current step. Without
+    ``k_new``/``v_new`` step t is already written in gkv; with them
+    (deferred mode, both [R, H] in q's dtype, strided like q) column t is
+    stale and they are the step's own K/V.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    takes float32 or bfloat16, head dim 64, up to MAX_BEAMS beams and
+    MAX_PREFILL prefill columns, and raises on anything else."""
+    if (k_new is None) != (v_new is None):
+        raise ValueError("k_new and v_new come together (deferred mode) or not at all")
+    build.require_device(q, gkv, pk, pv, valid, anc)
+    return _op(q, gkv, pk, pv, valid, anc, int(t), num_beams, num_heads, k_new, v_new)

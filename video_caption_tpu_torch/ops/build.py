@@ -220,6 +220,15 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({lib.vct_error_string(rc).decode()})")
 
 
+def require_device(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on the CPU (the op's plain version) or
+    on a CUDA device (its kernel): a wrapper hands nothing else to its op,
+    whose fake implementation would answer a meta tensor with one."""
+    for t in tensors:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"the kernels take CPU or CUDA tensors, got one on {t.device}")
+
+
 def require_cuda(t: torch.Tensor, name: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")

@@ -11,6 +11,10 @@ one query token.
 Off by default, as in the JAX package; ``GPT2Config.use_pallas_decode``
 (``CompileConfig.use_pallas_decode_attention``) routes the K=1 decode step's
 attention here.
+
+The kernel is the custom op ``vct::decode_attention``: its CPU kernel is the
+plain version, its CUDA kernel the checks, the plan and the launch, its fake
+implementation the output's shape from q's.
 """
 from __future__ import annotations
 
@@ -195,6 +199,26 @@ def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return qst[0], kst[0], kst[1], vst[0], vst[1]
 
 
+@torch.library.custom_op("vct::decode_attention", mutates_args=(), device_types="cpu")
+def _op(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+        valid: torch.Tensor) -> torch.Tensor:
+    return decode_attention_ref(q, k_cache, v_cache, valid)
+
+
+@_op.register_kernel("cuda")
+def _cuda(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+          valid: torch.Tensor) -> torch.Tensor:
+    strides = _check(q, k_cache, v_cache, valid)
+    p = _plan_for(q.shape[0], q.shape[1], valid.shape[1], q.element_size(), q.get_device())
+    return _launch(q, k_cache, v_cache, valid, p, strides)
+
+
+@_op.register_fake
+def _fake(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+          valid: torch.Tensor) -> torch.Tensor:
+    return q.new_empty(q.shape)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
     """Attention of one query token per row: q [B, nh, hd], K/V caches
@@ -207,8 +231,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     heads contiguous; every pointer and stride on whole 16 bytes), so the K
     and V halves of the interleaved cache layer ``kv[layer, :, :, 0]`` /
     ``[..., 1]`` pass without a copy; it raises on anything else."""
-    if q.device.type == "cpu":
-        return decode_attention_ref(q, k_cache, v_cache, valid)
-    strides = _check(q, k_cache, v_cache, valid)
-    p = _plan_for(q.shape[0], q.shape[1], valid.shape[1], q.element_size(), q.get_device())
-    return _launch(q, k_cache, v_cache, valid, p, strides)
+    build.require_device(q, k_cache, v_cache, valid)
+    return _op(q, k_cache, v_cache, valid)

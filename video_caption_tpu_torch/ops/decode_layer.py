@@ -18,12 +18,18 @@ weights in f32, the rest in the compute dtype, projections ``[in, out]``.
 Off by default, as in the JAX package; ``GPT2Config.use_pallas_decode_layer``
 (``CompileConfig.use_pallas_decode_layer``) selects the flat cache and this
 step for greedy/sampled decode.
+
+The kernel is the custom op ``vct::decode_layer``, which declares that it
+writes ``kvf`` and returns ``x_out`` alone; the layer weights pass as a list
+in the order of ``BLOCK_KEYS`` (an op takes no dict). Its CPU kernel is the
+plain version, its CUDA kernel the checks, the plan and the launch, its
+fake implementation ``x_out``'s shape from x's.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +59,10 @@ PHASES = ("qkv", "proj", "fc", "out")
 _NEG = -1e30
 
 LN_KEYS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")
+BLOCK_KEYS = ("ln1_scale", "ln1_bias", "attn_w", "attn_b", "proj_w", "proj_b",
+              "ln2_scale", "ln2_bias", "fc_w", "fc_b", "out_w", "out_b")
+"""The order of the layer weights in the op's ``blocks`` list (the C entry
+point's)."""
 
 launches = 0
 """Number of times ``gpt2_decode_step`` launched its CUDA kernel."""
@@ -297,19 +307,16 @@ def gpt2_decode_step_ref(x: torch.Tensor, kvf: torch.Tensor, valid: torch.Tensor
     return x, kvf
 
 
-def gpt2_decode_step(x: torch.Tensor, kvf: torch.Tensor, valid: torch.Tensor, offset: int,
-                     blocks: Dict[str, torch.Tensor], num_heads: int,
-                     ln_eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every layer of one decode step: x [B, H] in the compute dtype, kvf
-    [n_layer, max_len, B, 2H] (its row ``offset`` written in place), valid
-    [B, max_len] int32, ``blocks`` the stacked layer weights (LayerNorm in
-    f32, the rest in x's dtype). Returns (x_out [B, H], kvf).
+@torch.library.custom_op("vct::decode_layer", mutates_args=("kvf",), device_types="cpu")
+def _op(x: torch.Tensor, kvf: torch.Tensor, valid: torch.Tensor, offset: int,
+        blocks: List[torch.Tensor], num_heads: int, ln_eps: float) -> torch.Tensor:
+    return gpt2_decode_step_ref(x, kvf, valid, offset, dict(zip(BLOCK_KEYS, blocks)),
+                                num_heads, ln_eps)[0]
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    takes float32 or bfloat16, head dim 64 and contiguous tensors, and raises
-    on anything else (a grid the card cannot hold resident at once included)."""
-    if x.device.type == "cpu":
-        return gpt2_decode_step_ref(x, kvf, valid, offset, blocks, num_heads, ln_eps)
+
+@_op.register_kernel("cuda")
+def _cuda(x: torch.Tensor, kvf: torch.Tensor, valid: torch.Tensor, offset: int,
+          blocks: List[torch.Tensor], num_heads: int, ln_eps: float) -> torch.Tensor:
     build.require_cuda(x, "x")
     build.require_cuda(kvf, "kvf")
     build.require_cuda(valid, "valid")
@@ -328,6 +335,7 @@ def gpt2_decode_step(x: torch.Tensor, kvf: torch.Tensor, valid: torch.Tensor, of
     shapes = {"ln1_scale": (h,), "ln1_bias": (h,), "ln2_scale": (h,), "ln2_bias": (h,),
               "attn_w": (h, 3 * h), "attn_b": (3 * h,), "proj_w": (h, h), "proj_b": (h,),
               "fc_w": (h, 4 * h), "fc_b": (4 * h,), "out_w": (4 * h, h), "out_b": (h,)}
+    blocks = dict(zip(BLOCK_KEYS, blocks))
     for name, shape in shapes.items():
         t = blocks[name]
         build.require_cuda(t, name)
@@ -340,7 +348,29 @@ def gpt2_decode_step(x: torch.Tensor, kvf: torch.Tensor, valid: torch.Tensor, of
     if x.data_ptr() % 16 or kvf.data_ptr() % 16:
         raise ValueError("x and kvf must be 16-byte aligned")
     p = _plan_for(b, h, n_layer, max_len, x.element_size(), x.get_device())
-    return _launch(x, kvf, valid, offset, blocks, num_heads, ln_eps, p)
+    return _launch(x, kvf, valid, offset, blocks, num_heads, ln_eps, p)[0]
+
+
+@_op.register_fake
+def _fake(x: torch.Tensor, kvf: torch.Tensor, valid: torch.Tensor, offset: int,
+          blocks: List[torch.Tensor], num_heads: int, ln_eps: float) -> torch.Tensor:
+    return torch.empty_like(x)
+
+
+def gpt2_decode_step(x: torch.Tensor, kvf: torch.Tensor, valid: torch.Tensor, offset: int,
+                     blocks: Dict[str, torch.Tensor], num_heads: int,
+                     ln_eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every layer of one decode step: x [B, H] in the compute dtype, kvf
+    [n_layer, max_len, B, 2H] (its row ``offset`` written in place), valid
+    [B, max_len] int32, ``blocks`` the stacked layer weights (LayerNorm in
+    f32, the rest in x's dtype). Returns (x_out [B, H], kvf).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    takes float32 or bfloat16, head dim 64 and contiguous tensors, and raises
+    on anything else (a grid the card cannot hold resident at once included)."""
+    build.require_device(x, kvf, valid)
+    return _op(x, kvf, valid, int(offset), [blocks[k] for k in BLOCK_KEYS], num_heads,
+               float(ln_eps)), kvf
 
 
 def _launch(x: torch.Tensor, kvf: torch.Tensor, valid: torch.Tensor, offset: int,

@@ -3,7 +3,10 @@
 Counterpart of video_caption_tpu/ops/pallas/encoder_attention.py. The CUDA
 kernel is ``csrc/encoder_attention.cu``; ``encoder_attention_ref`` is the
 plain PyTorch version, the mirror of the JAX package's ``_xla_reference``.
-``encoder_attention`` is differentiable: its backward
+The kernel is the custom op ``vct::encoder_attention``: its CPU kernel is
+the plain version, its CUDA kernel the launch, and its fake implementation
+gives the output's shape from the input's alone, so ``torch.export`` traces
+through it. The op is differentiable: its backward
 (``encoder_attention_bwd``) recomputes the f32 probabilities from the saved
 ``qkv`` and differentiates the plain version's arithmetic in closed form, as
 the JAX package's ``_attention_bwd`` takes ``jax.vjp`` of ``_xla_reference``.
@@ -81,19 +84,33 @@ def encoder_attention_bwd(qkv: torch.Tensor, grad_out: torch.Tensor, num_heads: 
     return torch.stack([dq, dk, dv], dim=2).transpose(1, 3).reshape(n, s, h3)
 
 
-class _EncoderAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qkv, num_heads):
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(qkv)
-        if qkv.device.type == "cpu":
-            return encoder_attention_ref(qkv, num_heads)
-        return _launch(qkv, num_heads)
+@torch.library.custom_op("vct::encoder_attention", mutates_args=(), device_types="cpu")
+def _op(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    return encoder_attention_ref(qkv, num_heads)
 
-    @staticmethod
-    def backward(ctx, grad):
-        (qkv,) = ctx.saved_tensors
-        return encoder_attention_bwd(qkv, grad, ctx.num_heads), None
+
+@_op.register_kernel("cuda")
+def _cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    return _launch(qkv, num_heads)
+
+
+@_op.register_fake
+def _fake(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    n, s, h3 = qkv.shape
+    return qkv.new_empty((n, s, h3 // 3))
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    qkv, ctx.num_heads = inputs
+    ctx.save_for_backward(qkv)
+
+
+def _backward(ctx, grad):
+    (qkv,) = ctx.saved_tensors
+    return encoder_attention_bwd(qkv, grad, ctx.num_heads), None
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def encoder_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -103,4 +120,5 @@ def encoder_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
     takes float32 or bfloat16, head dim 64, S <= MAX_SEQ (256), N <= 65535
     frames and qkv 16-byte aligned, and raises on anything else."""
-    return _EncoderAttention.apply(qkv, num_heads)
+    build.require_device(qkv)
+    return _op(qkv, num_heads)

@@ -2,8 +2,10 @@
 
 Counterpart of video_caption_tpu/ops/pallas/fused_pool.py. The CUDA kernel is
 ``csrc/fused_pool.cu``; ``fused_pool_ref`` is the plain PyTorch version, the
-mirror of the JAX package's ``_xla_pool``. ``fused_pool_temporal`` is
-differentiable: its backward (``fused_pool_bwd``) is the closed-form
+mirror of the JAX package's ``_xla_pool``. The kernel is the custom op
+``vct::fused_pool`` (CPU kernel: the plain version; CUDA kernel: the
+launch; a fake implementation from shapes alone). It is differentiable:
+its backward (``fused_pool_bwd``) is the closed-form
 broadcast of the JAX package's ``_pool_bwd``, so training through the
 encoder keeps the kernel in its forward.
 """
@@ -134,17 +136,32 @@ def fused_pool_bwd(grad: torch.Tensor, seq: int, frames: int, mode: str,
     return out.reshape(b * frames, seq, h)
 
 
-class _FusedPool(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, tokens, batch, frames, mode):
-        ctx.geometry = (tokens.shape[1], frames, mode, tokens.dtype)
-        if tokens.device.type == "cpu":
-            return fused_pool_ref(tokens, batch, frames, mode)
-        return _launch(tokens, batch, frames, mode)
+@torch.library.custom_op("vct::fused_pool", mutates_args=(), device_types="cpu")
+def _op(tokens: torch.Tensor, batch: int, frames: int, mode: str) -> torch.Tensor:
+    return fused_pool_ref(tokens, batch, frames, mode)
 
-    @staticmethod
-    def backward(ctx, grad):
-        return fused_pool_bwd(grad.contiguous(), *ctx.geometry), None, None, None
+
+@_op.register_kernel("cuda")
+def _cuda(tokens: torch.Tensor, batch: int, frames: int, mode: str) -> torch.Tensor:
+    return _launch(tokens, batch, frames, mode)
+
+
+@_op.register_fake
+def _fake(tokens: torch.Tensor, batch: int, frames: int, mode: str) -> torch.Tensor:
+    _check(tokens, batch, frames, mode)
+    return tokens.new_empty((batch, tokens.shape[2]))
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    tokens, _, frames, mode = inputs
+    ctx.geometry = (tokens.shape[1], frames, mode, tokens.dtype)
+
+
+def _backward(ctx, grad):
+    return fused_pool_bwd(grad.contiguous(), *ctx.geometry), None, None, None
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def fused_pool_temporal(tokens: torch.Tensor, batch: int, frames: int,
@@ -153,4 +170,5 @@ def fused_pool_temporal(tokens: torch.Tensor, batch: int, frames: int,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
     takes float32 or bfloat16 tokens of any H, and raises on anything else."""
-    return _FusedPool.apply(tokens, batch, frames, mode)
+    build.require_device(tokens)
+    return _op(tokens, batch, frames, mode)

@@ -6,6 +6,12 @@ mirror of the XLA body of ``gpt2.lm_stats``.
 
 The window of 128 columns is part of the selection algorithm: the window
 maxima feed ``logits_process.exact_topk``'s two-stage top-k.
+
+The kernel is the custom op ``vct::lm_head_stats``, which returns its five
+f32 outputs in one buffer (a custom op's outputs may not alias one
+another); ``lm_head_stats`` takes the statistics' views of it after the op.
+Its CPU kernel is the plain version, its CUDA kernel the launch, its fake
+implementation the buffer's size from the shapes alone.
 """
 from __future__ import annotations
 
@@ -41,17 +47,24 @@ def lm_head_stats_ref(x: torch.Tensor, wte_t: torch.Tensor, vocab_size: int) -> 
     return logits, wmax, m, l
 
 
-def lm_head_stats(x: torch.Tensor, wte_t: torch.Tensor, vocab_size: int) -> Stats:
-    """x [R, H] @ wte_t [H, Vp] with the selection statistics.
+def _sizes(r: int, vp: int) -> Tuple[int, ...]:
+    """Lengths of the op's five parts: logits [R, Vp], wmax [R, Vp/128], the
+    kernel's per-window partial sums [R, Vp/128] (zeros on the CPU), m [R]
+    and l [R]."""
+    nwin = vp // WINDOW
+    return r * vp, r * nwin, r * nwin, r, r
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    takes x and wte_t of one dtype (float32 or bfloat16), Vp a multiple of 128
-    and any R (in bf16, H a multiple of 8 and both tensors 16-byte aligned),
-    and raises on anything else. In bf16 the kernel reads wte_t once per call
-    up to R = 256, and once per 256 rows above that."""
+
+@torch.library.custom_op("vct::lm_head_stats", mutates_args=(), device_types="cpu")
+def _op(x: torch.Tensor, wte_t: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    logits, wmax, m, l = lm_head_stats_ref(x, wte_t, vocab_size)
+    return torch.cat([logits.reshape(-1), wmax.reshape(-1), torch.zeros_like(wmax).reshape(-1),
+                      m, l])
+
+
+@_op.register_kernel("cuda")
+def _cuda(x: torch.Tensor, wte_t: torch.Tensor, vocab_size: int) -> torch.Tensor:
     global launches
-    if x.device.type == "cpu":
-        return lm_head_stats_ref(x, wte_t, vocab_size)
     build.require_cuda(x, "x")
     build.require_cuda(wte_t, "wte_t")
     if x.dtype != wte_t.dtype:
@@ -64,16 +77,32 @@ def lm_head_stats(x: torch.Tensor, wte_t: torch.Tensor, vocab_size: int) -> Stat
         raise ValueError(f"padded vocab {vp} must be a multiple of {WINDOW} holding {vocab_size}")
     if x.dtype == torch.bfloat16 and (h % 8 or x.data_ptr() % 16 or wte_t.data_ptr() % 16):
         raise ValueError("bf16 x and wte_t must be 16-byte aligned with H a multiple of 8")
-    # the five f32 outputs (the third the kernel's lpart) in one allocation,
-    # their views taken after the launch: the decode loop that calls this is
-    # bound by the host's time per call
-    nwin = vp // WINDOW
-    sizes = (r * vp, r * nwin, r * nwin, r, r)
+    # the five f32 outputs (the third the kernel's lpart) in one allocation:
+    # the decode loop that calls this is bound by the host's time per call
+    sizes = _sizes(r, vp)
     buf = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
     if r:
         ptrs = [buf.data_ptr() + 4 * o for o in itertools.accumulate(sizes[:-1], initial=0)]
         build.launch("vct_lm_head_stats", x.data_ptr(), wte_t.data_ptr(), *ptrs,
                      r, h, vp, vocab_size, build.dtype_code(x.dtype), build.stream_of(x))
         launches += 1
-    logits, wmax, _, m, l = buf.split(sizes)
-    return logits.view(r, vp), wmax.view(r, nwin), m, l
+    return buf
+
+
+@_op.register_fake
+def _fake(x: torch.Tensor, wte_t: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    return x.new_empty((sum(_sizes(x.shape[0], wte_t.shape[1])),), dtype=torch.float32)
+
+
+def lm_head_stats(x: torch.Tensor, wte_t: torch.Tensor, vocab_size: int) -> Stats:
+    """x [R, H] @ wte_t [H, Vp] with the selection statistics.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    takes x and wte_t of one dtype (float32 or bfloat16), Vp a multiple of 128
+    and any R (in bf16, H a multiple of 8 and both tensors 16-byte aligned),
+    and raises on anything else. In bf16 the kernel reads wte_t once per call
+    up to R = 256, and once per 256 rows above that."""
+    build.require_device(x, wte_t)
+    r, vp = x.shape[0], wte_t.shape[1]
+    logits, wmax, _, m, l = _op(x, wte_t, vocab_size).split(_sizes(r, vp))
+    return logits.view(r, vp), wmax.view(r, vp // WINDOW), m, l

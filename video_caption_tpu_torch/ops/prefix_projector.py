@@ -2,7 +2,9 @@
 
 Counterpart of video_caption_tpu/ops/pallas/prefix_projector.py. The CUDA
 kernel is ``csrc/prefix_projector.cu``; ``prefix_project_ref`` is the plain
-PyTorch version. ``prefix_project`` is differentiable: its backward
+PyTorch version. The kernel is the custom op ``vct::prefix_project`` (CPU
+kernel: the plain version; CUDA kernel: the launch; a fake implementation
+from shapes alone). It is differentiable: its backward
 (``prefix_project_bwd``) is the JAX package's closed-form ``_project_bwd``.
 """
 from __future__ import annotations
@@ -105,19 +107,33 @@ def prefix_project_bwd(x: torch.Tensor, w: torch.Tensor, grad: torch.Tensor,
     return dx, dw, gf.sum(dim=0).to(b_dtype)
 
 
-class _PrefixProject(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, b):
-        ctx.save_for_backward(x, w)
-        ctx.b_dtype = b.dtype
-        if x.device.type == "cpu":
-            return prefix_project_ref(x, w, b)
-        return _launch(x, w, b)
+@torch.library.custom_op("vct::prefix_project", mutates_args=(), device_types="cpu")
+def _op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return prefix_project_ref(x, w, b)
 
-    @staticmethod
-    def backward(ctx, grad):
-        x, w = ctx.saved_tensors
-        return prefix_project_bwd(x, w, grad, ctx.b_dtype)
+
+@_op.register_kernel("cuda")
+def _cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _launch(x, w, b)
+
+
+@_op.register_fake
+def _fake(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    x, w, b = inputs
+    ctx.save_for_backward(x, w)
+    ctx.b_dtype = b.dtype
+
+
+def _backward(ctx, grad):
+    x, w = ctx.saved_tensors
+    return prefix_project_bwd(x, w, grad, ctx.b_dtype)
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def prefix_project(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -126,4 +142,5 @@ def prefix_project(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
     takes x in float32 and W, b both float32 or both bfloat16, and raises on
     anything else."""
-    return _PrefixProject.apply(x, w, b)
+    build.require_device(x, w, b)
+    return _op(x, w, b)

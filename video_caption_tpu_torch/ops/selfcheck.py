@@ -54,7 +54,7 @@ Tolerances (elementwise ``|kernel - plain| <= atol + rtol * |plain|``):
   1e-2 / 1e-2.
 
 Backward checks (``check_*_backward``) hold the input gradients of each
-``autograd.Function`` (the kernel's forward, its closed-form backward)
+differentiable op (the kernel's forward, its registered closed-form backward)
 against ``torch.autograd.grad`` through the plain version, as the largest
 error relative to the largest gradient value: encoder_attention 1e-4 in f32
 (the same rounding points, f32 sums over 197 rows in another order) and
@@ -506,7 +506,7 @@ def check_fused_pool(batch: int, frames: int, mode: str = "gap", dtype=torch.flo
 
 @dataclass
 class BackwardResult:
-    """Input gradients of an ``autograd.Function`` (kernel forward,
+    """Input gradients of a differentiable op (kernel forward, registered
     closed-form backward) against ``torch.autograd.grad`` through the plain
     version; times of forward + backward of each, of the closed-form
     backward alone, and of one PyTorch call's forward + backward where
