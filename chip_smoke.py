@@ -94,8 +94,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    ``precise`` captured into a CUDA graph (its beam groups' ids equal the
    same program run op by op), and the processed scores of 4 beam-3 and 4
    K=1 steps against the f32 CPU path; (e) ``eval/``:
-   ``ablate_decode.ablate`` over 4 annotated videos on beams 1, 3, 5 x T
-   0.8, 1.0 x top_p 0.9 x n-gram 3 and ``eval_compare.compare`` between the
+   ``ablate_decode.ablate`` over 2 annotated videos on beams 1, 3, 5 x T
+   0.8 x top_p 0.9 x n-gram 3 and ``eval_compare.compare`` between the
    bf16 and int8 engines, which must launch ``beam_attention`` at K=5 (its
    wrapper's count by beam count);
 8. batches: ``infer_batch`` of 1, 2, 4 and 8 videos on the graph (one graph
@@ -152,7 +152,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    of one with ``compile.unified_decode`` at batch 1 (device ms, GFLOP,
    GB and the shares of the H100's peaks per stage; a share over 100%
    fails); the driver (``bench/driver.py``, batch 8, depth 2), which prints
-   its JSON line; one ``serving_load.run_load`` at 8 QPS for 10 s (no
+   its JSON line; one ``serving_load.run_load`` at 8 QPS for 5 s (no
    error allowed); the accuracy gate (``check_alignment`` at 224x224:
    72 videos x 4 beams on the card against f32 on the CPU, ``all_ok``
    required). The kernel counts are read around the phase: the default
@@ -189,6 +189,40 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    each request (the unified request's, encoder_attention 12 at 8 frames)
    and the ms of each request; ``tools/human_eval.main`` on the batch_infer
    CSV: a questionnaire of one row per captioned video;
+16. mesh (run after 14, before the summary): the port's multi-device
+   paths (``parallel/``). The card is one H100 and NCCL refuses two ranks
+   on one device, so two ranks (``parallel/dryrun.run_world``, spawned,
+   their exit codes checked, a world not done within MESH_TIMEOUT_S
+   killed and the run failed) share it over gloo (``backend="gloo"``,
+   printed with the reason). Each rank builds its engines as a user does:
+   ``InferenceEngine(config)`` with ``config.mesh`` set and the device
+   named ``cuda`` (resolved to ``cuda:LOCAL_RANK``). At full width with
+   seeded random bf16 weights and 16 frames, ``infer_batch`` of 2 videos
+   with the core presets on a 1x2 (TP: 6 heads a rank) and a 2x1 (DP) mesh
+   engine, eagerly (the request program uncaptured, as under the JAX
+   engine's mesh gates), each request with the kernels' counts set to 0
+   just before it and read just after on each rank (encoder_attention,
+   prefix_projector, lm_head and beam_attention must launch). TP: the
+   prefix's and the prefill logits' relative error against the
+   single-device engine (eager, same weights and seed; bound REL_TOL) and
+   the share of identical id rows (not required: bf16 sums over the two
+   halves of every row-parallel product in another order). DP: every
+   group's ids identical to the single-device engine's on each data rank's
+   video alone with that rank's rows of the batch's noise
+   (``dryrun.rows_alone_ids``). encoder_attention and beam_attention at a
+   rank's 6 heads against their plain versions (error, tolerance, kernel /
+   plain / library ms, bound). One mapper-trainer step at 2x1 with
+   ``fsdp=True, fsdp_min_elems=0`` at 2 GPT-2 layers of full width (the
+   last one trained) against the single-device step: the loss within
+   MESH_LOSS_RTOL, the gradient norm within MESH_NORM_RTOL, the trained
+   leaves' update with a share of flipped elements below
+   MESH_FLIPPED_SHARE (and one device's step on half the batch above it),
+   all-gathers over data in it.
+   Then a one-rank NCCL group: an all-reduce, an all-gather and a
+   reduce-scatter of ``parallel/collectives.py`` on CUDA tensors, and the
+   same batch on the engine of that one rank (a 1x1 mesh), whose ids must
+   equal the single-device engine's (its ids gathered over ``data``
+   through NCCL);
 15. the seconds of each phase and of the run, the kernel table as one JSON
    line (launches of each kernel's path: the default engine's requests,
    each fused-decode engine's, the joint steps' for fused_pool), the
@@ -249,7 +283,7 @@ COLD_ENCODER = 12 * -(-NUM_FRAMES // CHUNK)
 BUCKETS = (1, 2, 4, 8)
 BENCH_WARMUP, BENCH_ITERS = 2, 5
 ROOFLINE_BATCHES = (1, 8)
-LOAD_QPS, LOAD_SECONDS = 8.0, 10.0
+LOAD_QPS, LOAD_SECONDS = 8.0, 5.0
 BATCH_REPEATS = 3
 SERVER_CLIENTS = 16
 BEAMS = 3
@@ -261,7 +295,7 @@ TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 4, 8, 5
 # loss and global gradient norm through 12 ViT layers and back
 TRAIN_REL_TOL = 1e-3
 INT8_REL_TOL = 3e-2    # int8 weights in bf16 products on the card vs the same weights in f32
-EVAL_VIDEOS = 4
+EVAL_VIDEOS = 2
 QUALITY_LOOP_ARGS = ["--colors", "2", "--shapes", "1", "--motions", "2", "--sizes", "1",
                      "--train_per_class", "2", "--val_per_class", "1", "--stage3_steps", "30",
                      "--mapper_steps", "30", "--align_steps", "10", "--eval_limit", "4"]
@@ -276,7 +310,22 @@ QUALITY_LOOP_KERNELS = ("encoder_attention", "fused_pool", "prefix_projector", "
                         "beam_attention")
 QUALITY_LOOP_FRAMES = 8
 HYBRID_VIDEOS = 2       # val videos of the quality loop that hybrid_caption captions
-EVAL_GRID = {"num_beams": (1, 3, 5), "temperature": (0.8, 1.0), "top_p": (0.9,),
+MESH_VIDEOS = 2         # phase 16's batch: one video a data rank at 2x1
+MESH_TIMEOUT_S = 420    # a world of ranks not done by then is killed and fails the run
+# the FSDP step at 2x1 (two rows a rank, bf16 compute) against the
+# single-device step on the same four rows. The loss: each row's is the
+# same computation, summed in another order (a few f32 ulps). The gradient
+# norm: the bf16 weight gradients (8 bits, 2^-9 relative rounding) summed
+# over the two ranks after rounding rather than before. The update of the
+# trained leaves: Adam's first step moves nearly every element by +-lr
+# (lr * g / (|g| + eps)), so the two steps' updates differ only where an
+# element's gradient is within its rounding of 0 and its sign flips; the
+# share of flipped elements is bounded. The control, one device's step on
+# half the batch (a rank that left half of it out), must exceed the bound.
+MESH_LOSS_RTOL = 1e-5
+MESH_NORM_RTOL = 1e-3
+MESH_FLIPPED_SHARE = 1e-2
+EVAL_GRID = {"num_beams": (1, 3, 5), "temperature": (0.8,), "top_p": (0.9,),
              "no_repeat_ngram_size": (3,)}
 FULL_VOCAB = {"precise": {"repetition_penalty": 0.9}, "natural": {"top_k": 0}}
 CAPTIONS = ("a man is riding a horse", "a woman is slicing a tomato",
@@ -355,12 +404,7 @@ def main() -> int:
     torch.cuda.synchronize()
     report["kernel_checks"] = [c.as_dict() for c in checks]
     for c in checks:
-        lib = "none" if c.library_ms is None else f"{c.library_ms:.4f} ms"
-        atol = f"{c.atol:g}{' x max|plain|' if c.atol_of_max else ''}"
-        log(f"kernel {c.name:18s} {c.shape:52s} max_abs_err {c.max_abs_err:.3e} "
-            f"(atol {atol} rtol {c.rtol:g}) {'ok' if c.ok else 'FAIL'} "
-            f"kernel {c.ms:.4f} ms plain {c.plain_ms:.4f} ms library {lib} "
-            f"bound {c.bound_ms:.4f} ms ({c.bound_by})")
+        _log_check(c)
     bad = [c for c in checks if not c.ok]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -572,6 +616,9 @@ def main() -> int:
         # ---- 14. the quality loop: the first trained checkpoint
         report["quality_loop"] = _quality_loop_phase(Path(tmp))
         lap("14 quality loop")
+        # ---- 16. the multi-device paths: two ranks on the one card, and NCCL
+        report["mesh"] = _mesh_phase(engine, core_cfg, all_dirs[:MESH_VIDEOS], Path(tmp), ckpt)
+        lap("16 mesh")
 
     # ---- 15. summary: launches of each kernel's path (the default engine's
     # requests; the fused-decode kernels', their engines' requests;
@@ -2354,6 +2401,176 @@ def _f32(model_cfg):
 
     return dataclasses.replace(model_cfg, vit=dataclasses.replace(model_cfg.vit, dtype=torch.float32),
                                gpt2=dataclasses.replace(model_cfg.gpt2, dtype=torch.float32))
+
+
+def _log_check(c, prefix="kernel") -> None:
+    lib = "none" if c.library_ms is None else f"{c.library_ms:.4f} ms"
+    atol = f"{c.atol:g}{' x max|plain|' if c.atol_of_max else ''}"
+    log(f"{prefix} {c.name:18s} {c.shape:52s} max_abs_err {c.max_abs_err:.3e} "
+        f"(atol {atol} rtol {c.rtol:g}) {'ok' if c.ok else 'FAIL'} "
+        f"kernel {c.ms:.4f} ms plain {c.plain_ms:.4f} ms library {lib} "
+        f"bound {c.bound_ms:.4f} ms ({c.bound_by})")
+
+
+def _mesh_phase(engine, core_cfg, dirs, root: Path, ckpt: str) -> dict:
+    """Phase 16: the multi-device paths on one card (module docstring)."""
+    import numpy as np
+
+    from video_caption_tpu_torch.engine import InferenceEngine
+    from video_caption_tpu_torch.ops import selfcheck
+    from video_caption_tpu_torch.parallel import dryrun
+
+    out = {}
+    # the kernels at a rank's 6 of 12 heads: the TP request's encoder (2
+    # videos x 16 frames) and its beam-3 group (2 videos x 2 presets)
+    checks = [selfcheck.check_encoder_attention(MESH_VIDEOS * NUM_FRAMES, heads=6),
+              selfcheck.check_beam_attention(2 * MESH_VIDEOS, BEAMS, 48, 24, 12, heads=6),
+              selfcheck.check_beam_attention(2 * MESH_VIDEOS, BEAMS, 48, 24, 12, heads=6,
+                                             deferred=True)]
+    for c in checks:
+        _log_check(c, "mesh kernel (6 heads)")
+    out["kernel_checks"] = [c.as_dict() for c in checks]
+    if not all(c.ok for c in checks):
+        raise AssertionError(f"kernels at 6 heads disagree with their plain versions: {checks}")
+
+    # the single-device engine on the same weights and seed, eagerly
+    ref_cfg = dataclasses.replace(core_cfg, compile=dataclasses.replace(
+        core_cfg.compile, aot_request_program=False))
+    ref = InferenceEngine(ref_cfg, params=engine.params, seed=SEED, device="cuda")
+    want = dryrun.engine_request(ref, dirs)
+    alone = dryrun.rows_alone_ids(ref, dirs, 2, SEED)
+    del ref
+    rng = np.random.RandomState(SEED)
+    mask = np.ones((TRAIN_BATCH, 24), np.int32)
+    mask[0, 12:] = 0
+    batch = {"video": rng.randint(0, 255, (TRAIN_BATCH, TRAIN_FRAMES, 3, IMAGE_SIZE, IMAGE_SIZE),
+                                  np.uint8),
+             "caption_ids": rng.randint(0, 50000, (TRAIN_BATCH, 24)).astype(np.int32),
+             "attention_mask": mask}
+    payload = {"dirs": list(dirs), "ckpt": ckpt, "num_frames": NUM_FRAMES,
+               "image_size": IMAGE_SIZE, "seed": SEED, "out_dir": str(root / "mesh"),
+               "batch": batch}
+    log("mesh: two ranks share the one H100 over gloo (backend='gloo'): NCCL refuses two "
+        "ranks on one device")
+    t0 = time.perf_counter()
+    ranks = dryrun.run_world(2, dryrun.chip_mesh_ranks, payload, device="cuda",
+                             backend="gloo", timeout=MESH_TIMEOUT_S)
+    out["ranks_s"] = time.perf_counter() - t0
+    v = engine.model_cfg.gpt2.vocab_size
+
+    def id_rows_share(ids, reference):
+        rows = [(a == b).all(axis=1) for a, b in zip(ids, reference)]
+        return float(sum(r.sum() for r in rows)) / sum(r.size for r in rows)
+
+    for shape, label in (((1, 2), "1x2 (TP)"), ((2, 1), "2x1 (DP)")):
+        got = [r[shape] for r in ranks]
+        if any(not all(np.array_equal(a, b) for a, b in zip(g["ids"], got[0]["ids"]))
+               for g in got[1:]):
+            raise AssertionError(f"mesh {label}: the ranks returned different ids")
+        for r, g in enumerate(got):
+            _require_launches(g["launches"], selfcheck.DEFAULT_PATH,
+                              f"mesh {label} rank {r}'s request")
+            for result in g["results"]:
+                _check_result(result)
+        launches = [{k: n for k, n in g["launches"].items() if k in selfcheck.DEFAULT_PATH}
+                    for g in got]
+        out[label] = {"seconds": [g["seconds"] for g in got], "launches": launches,
+                      "results": got[0]["results"]}
+        head = (f"mesh {label}: infer_batch of {len(dirs)} videos (core presets, eager) "
+                f"{[round(g['seconds'], 2) for g in got]} s a rank, launches a rank {launches}")
+        if shape == (1, 2):
+            prefix_err = rel_err(torch.from_numpy(got[0]["prefix"]),
+                                 torch.from_numpy(want["prefix"]))
+            logits_err = rel_err(torch.from_numpy(got[0]["logits"][:, :v]),
+                                 torch.from_numpy(want["logits"][:, :v]))
+            share = id_rows_share(got[0]["ids"], want["ids"])
+            log(f"{head}; prefix rel err {prefix_err:.3e}, prefill logits rel err "
+                f"{logits_err:.3e} (bound {REL_TOL:g}) against the single-device engine; "
+                f"identical id rows {share:.1%}; result {json.dumps(got[0]['results'][0])}")
+            out[label].update(prefix_rel_err=prefix_err, logits_rel_err=logits_err,
+                              identical_id_rows=share)
+            if not (prefix_err < REL_TOL and logits_err < REL_TOL):
+                raise AssertionError(f"mesh {label} disagrees with the single-device engine")
+        else:
+            same = [np.array_equal(a, b) for a, b in zip(got[0]["ids"], alone)]
+            log(f"{head}; each group's ids identical to the single-device engine's on each "
+                f"rank's video alone with its rows of the batch's noise: {same} (groups "
+                f"sampling {got[0]['sampled']}); identical id rows against the 2-video "
+                f"single-device batch {id_rows_share(got[0]['ids'], want['ids']):.1%}; result "
+                f"{json.dumps(got[0]['results'][0])}")
+            out[label].update(identical_groups=same, sampled=got[0]["sampled"])
+            if not all(same):
+                raise AssertionError(f"mesh {label}: ids differ from the single-device engine "
+                                     f"on each rank's rows")
+
+    single, half = (dryrun.mapper_step(None, dryrun.full_width_mapper_config(), b, SEED,
+                                       str(root / f"mesh_single{i}"), torch.device("cuda"))
+                    for i, b in enumerate((batch, {k: v[:TRAIN_BATCH // 2]
+                                                   for k, v in batch.items()})))
+    fsdp = [r["fsdp"] for r in ranks]
+    diff = abs(fsdp[0]["loss"] - single["loss"]) / abs(single["loss"])
+    norm_diff = abs(fsdp[0]["grad_norm"] - single["grad_norm"]) / single["grad_norm"]
+    b0 = single["before"]
+    update_diff, flipped = _update_diff(b0, fsdp[0]["after"], single["after"])
+    half_diff, half_flipped = _update_diff(b0, half["after"], single["after"])
+    log(f"mesh 2x1 FSDP mapper step (2 GPT-2 layers, the last trained, full width, "
+        f"fsdp_min_elems=0) against one device: loss {fsdp[0]['loss']:.6f} / "
+        f"{single['loss']:.6f} (relative diff {diff:.2e}, bound {MESH_LOSS_RTOL:g}); gradient "
+        f"norm {fsdp[0]['grad_norm']:.6e} / {single['grad_norm']:.6e} (relative diff "
+        f"{norm_diff:.2e}, bound {MESH_NORM_RTOL:g}); update of {len(b0)} trained leaves: "
+        f"flipped share {flipped:.3e} (bound {MESH_FLIPPED_SHARE:g}), relative L2 diff "
+        f"{update_diff:.3e}; control, one device on half the batch: flipped share "
+        f"{half_flipped:.3e}, relative L2 diff {half_diff:.3e}; "
+        f"{fsdp[0]['data_sharded']} leaves data-sharded, {fsdp[0]['data_gathers']} all-gathers "
+        f"over data; step {fsdp[0]['seconds']:.2f} s (rank 0), {single['seconds']:.2f} s on "
+        f"one device")
+    out["fsdp"] = {"loss": fsdp[0]["loss"], "single_loss": single["loss"], "rel_diff": diff,
+                   "grad_norm": fsdp[0]["grad_norm"], "single_grad_norm": single["grad_norm"],
+                   "norm_rel_diff": norm_diff, "update_rel_diff": update_diff,
+                   "flipped_share": flipped, "half_batch_update_rel_diff": half_diff,
+                   "half_batch_flipped_share": half_flipped,
+                   "trained_leaves": len(b0), "data_sharded": fsdp[0]["data_sharded"],
+                   "data_gathers": fsdp[0]["data_gathers"],
+                   "seconds": [f["seconds"] for f in fsdp], "single_seconds": single["seconds"]}
+    if not (diff < MESH_LOSS_RTOL and norm_diff < MESH_NORM_RTOL
+            and flipped < MESH_FLIPPED_SHARE < half_flipped and fsdp[0]["loss"] == fsdp[1]["loss"]
+            and fsdp[0]["data_gathers"] > 0 and fsdp[0]["data_sharded"] > 0):
+        raise AssertionError(f"the FSDP step disagrees: {out['fsdp']}")
+
+    t0 = time.perf_counter()
+    nccl = dryrun.run_world(1, dryrun.chip_nccl_rank, payload, device="cuda",
+                            backend="nccl", timeout=MESH_TIMEOUT_S)[0]
+    out["nccl_s"] = time.perf_counter() - t0
+    same_ids = all(np.array_equal(a, b) for a, b in zip(nccl["request"]["ids"], want["ids"]))
+    log(f"mesh one-rank NCCL group (backend {nccl['backend']}): {nccl['collectives']} "
+        f"collectives on CUDA tensors return their input {nccl['same']}; 1x1 mesh engine's "
+        f"ids identical to the single-device engine's {same_ids}, its collectives "
+        f"{nccl['request_collectives']}, launches {nccl['request']['launches']}")
+    out["nccl"] = {"backend": nccl["backend"], "same": nccl["same"], "identical_ids": same_ids,
+                   "request_collectives": nccl["request_collectives"]}
+    _require_launches(nccl["request"]["launches"], selfcheck.DEFAULT_PATH,
+                      "the 1x1 NCCL mesh request")
+    if not (nccl["backend"] == "nccl" and nccl["on_mesh"] and all(nccl["same"].values())
+            and same_ids and nccl["request_collectives"]):
+        raise AssertionError(f"the one-rank NCCL check failed: {out['nccl']}")
+    return out
+
+
+def _update_diff(before: dict, got: dict, want: dict) -> tuple:
+    """(relative L2 difference, share of flipped elements) of the update
+    ``got - before`` against ``want - before`` over the leaves of
+    ``before``: an element is flipped where the two updates differ by more
+    than half the largest move of its leaf in ``want``."""
+    import numpy as np
+
+    sq = moved = flipped = count = 0.0
+    for p, b in before.items():
+        d_got, d_want = got[p] - b, want[p] - b
+        sq += float(np.sum((d_got - d_want) ** 2))
+        moved += float(np.sum(d_want ** 2))
+        flipped += int(np.sum(np.abs(d_got - d_want) > 0.5 * np.abs(d_want).max()))
+        count += b.size
+    return math.sqrt(sq / moved), flipped / count
 
 
 def _prefill_logits(params, cfg, embeds):

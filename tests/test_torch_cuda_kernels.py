@@ -9,7 +9,8 @@ false. Run them on the GPU with
 import pytest
 import torch
 
-from torch_kernel_geometries import (BEAM_GEOMETRIES, DECODE_GEOMETRIES, POOL_GEOMETRIES,
+from torch_kernel_geometries import (BEAM_GEOMETRIES, BEAM_TP_GEOMETRIES, DECODE_GEOMETRIES,
+                                     ENCODER_TP_GEOMETRIES, POOL_GEOMETRIES,
                                      PROJECTOR_GEOMETRIES)
 from torch_op_cases import CASE_IDS, cases, to_meta
 from video_caption_tpu_torch.ops import selfcheck
@@ -37,6 +38,14 @@ def test_encoder_attention_kernel(cuda, frames, seq, dtype):
 
     seq = ea.MAX_SEQ if seq == "max" else seq
     _assert_ok(selfcheck.check_encoder_attention(frames, cuda, seq=seq, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("frames,seq,heads", ENCODER_TP_GEOMETRIES)
+def test_encoder_attention_kernel_tp_heads(cuda, frames, seq, heads, dtype):
+    """A rank's head group under tensor parallelism (6 or 3 of 12 heads)."""
+    _assert_ok(selfcheck.check_encoder_attention(frames, cuda, seq=seq, heads=heads,
+                                                 dtype=dtype))
 
 
 def test_encoder_attention_kernel_odd_sequence(cuda):
@@ -87,6 +96,17 @@ def test_beam_attention_kernel_unified_blocks(cuda, videos, beams, steps, live, 
     ancestry inside their instance's block, at t = 0, N/2 and N-1."""
     for t in (0, steps // 2, steps - 1):
         _assert_ok(selfcheck.check_beam_attention(videos, beams, 48, steps, t, cuda,
+                                                  deferred=deferred, live=live))
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+@pytest.mark.parametrize("videos,beams,s0,n,heads", BEAM_TP_GEOMETRIES)
+def test_beam_attention_kernel_tp_heads(cuda, videos, beams, s0, n, heads, deferred):
+    """A rank's head group under tensor parallelism (6 or 3 of 12 heads),
+    at t = 0, N/2 and N-1."""
+    live = (beams, beams, 1) if videos == 3 else None
+    for t in sorted({0, n // 2, n - 1}):
+        _assert_ok(selfcheck.check_beam_attention(videos, beams, s0, n, t, cuda, heads=heads,
                                                   deferred=deferred, live=live))
 
 

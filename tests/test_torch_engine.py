@@ -103,13 +103,16 @@ def test_sampled_preset_is_seeded(tiny_cfg, tiny_params, frames_dirs):
 
 
 def test_engine_rejects_unported_options(tiny_cfg, tiny_params):
-    """Multi-device inference is still not ported and raises (int8, which
-    this test once saw refused, runs: test_int8_engine_matches_jax_engine)."""
+    """A mesh engine needs the caller's process group of data * model ranks:
+    without one it raises ValueError, as the JAX package's make_mesh does
+    on a device count that does not match (int8, which this test once saw
+    refused, runs: test_int8_engine_matches_jax_engine; the mesh engines:
+    tests/test_torch_parallel.py)."""
     import dataclasses
 
     base = default_inference_config(ckpt="missing.pt", num_frames=2, image_size=32)
     mesh = dataclasses.replace(base, mesh=dataclasses.replace(base.mesh, data=2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         InferenceEngine(mesh, model_cfg=port_cfg(tiny_cfg), device="cpu")
 
 

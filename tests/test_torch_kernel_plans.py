@@ -41,6 +41,11 @@ by several processes at once.
   interpret mode at 1e-5 abs + 1e-4 rel.
 - Six processes started from one barrier build the native loader into one
   empty cache; each loads it and decodes a JPEG equal to PIL's.
+- The tensor-parallel shapes (a rank's 6 or 3 of 12 heads): the
+  beam-attention plan over them, and encoder_attention's and
+  beam_attention's plain versions on a head group's columns equal to the
+  whole 12-head call's columns of those heads (and beam_attention's to the
+  JAX package's ``_beam_attend`` at the local heads).
 """
 import os
 import subprocess
@@ -54,8 +59,9 @@ import torch
 from PIL import Image
 
 from jax.experimental.pallas import tpu as pltpu
-from torch_kernel_geometries import (BEAM_GEOMETRIES, DECODE_GEOMETRIES, LAYER_GEOMETRIES,
-                                     POOL_GEOMETRIES, PROJECTOR_GEOMETRIES)
+from torch_kernel_geometries import (BEAM_GEOMETRIES, BEAM_TP_GEOMETRIES, DECODE_GEOMETRIES,
+                                     ENCODER_TP_GEOMETRIES, LAYER_GEOMETRIES, POOL_GEOMETRIES,
+                                     PROJECTOR_GEOMETRIES)
 from video_caption_tpu.models import gpt2 as jg2
 from video_caption_tpu.ops.pallas import decode_attention as jda
 from video_caption_tpu.ops.pallas import decode_layer as jdl
@@ -64,6 +70,7 @@ from video_caption_tpu.ops.pallas import prefix_projector as jpp
 from video_caption_tpu_torch.ops import beam_attention as ba
 from video_caption_tpu_torch.ops import decode_attention as da
 from video_caption_tpu_torch.ops import decode_layer as dl
+from video_caption_tpu_torch.ops import encoder_attention as ea
 from video_caption_tpu_torch.ops import fused_pool as fpl
 from video_caption_tpu_torch.ops import prefix_projector as pp
 
@@ -745,3 +752,71 @@ def test_sweep_plans_needs_a_gpu(capsys):
         pytest.skip("this checks the refusal on a machine without a GPU")
     assert sweep_plans.main([]) == 1
     assert "NVIDIA GPU" in capsys.readouterr().err
+
+
+# ---- the tensor-parallel shapes ---------------------------------------------
+
+def _head_group(x: torch.Tensor, heads: int, group: int, groups: int, parts: int = 1):
+    """The columns of head group ``group`` of ``groups`` in each of the
+    ``parts`` [heads * 64] thirds of x's last dim (a rank's fused QKV shard
+    for parts=3)."""
+    per = heads // groups * 64
+    t = x.unflatten(-1, (parts, heads * 64))[..., group * per:(group + 1) * per]
+    return t.flatten(-2)
+
+
+@pytest.mark.parametrize("frames,seq,heads", ENCODER_TP_GEOMETRIES)
+def test_encoder_attention_on_a_head_group(frames, seq, heads):
+    """The plain version at a rank's heads, on its head-grouped fused QKV,
+    equals the 12-head call's output columns of those heads, in f32."""
+    groups = 12 // heads
+    qkv = torch.randn((frames, seq, 3 * 12 * 64), generator=torch.Generator().manual_seed(heads))
+    whole = ea.encoder_attention_ref(qkv, 12)
+    for g in range(groups):
+        got = ea.encoder_attention_ref(_head_group(qkv, 12, g, groups, 3).contiguous(), heads)
+        torch.testing.assert_close(got, _head_group(whole, 12, g, groups), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("videos,beams,s0,n,heads", BEAM_TP_GEOMETRIES)
+def test_beam_attention_on_a_head_group(videos, beams, s0, n, heads):
+    """The plan at every step stages every column once (it does not depend
+    on the heads: the grid is (videos, heads)); the plain version at a
+    rank's heads on its head group's columns equals the 12-head call's
+    columns of those heads and the JAX package's ``_beam_attend`` at the
+    local heads, at t = 0, N/2 and N-1 in both modes, in f32."""
+    groups = 12 // heads
+    live = (beams, beams, 1) if videos == 3 else None
+    q, k_new, v_new, gkv, pk, pv, valid, anc = selfcheck_case(videos, beams, s0, n, live)
+    jcfg = jg2.GPT2Config(vocab_size=64, n_embd=heads * 64, n_layer=1, n_head=heads,
+                          dtype=jnp.float32)
+    for t in sorted({0, n // 2, n - 1}):
+        for deferred in (False, True):
+            p = ba.plan(videos, beams, s0, n, t, 4, deferred)
+            covered = [l for l0, l1 in p.chunks for l in range(l0, l1)]
+            assert covered == list(range(s0 + p.steps))
+            kw = dict(k_new=k_new, v_new=v_new) if deferred else {}
+            whole = ba.beam_attention_ref(q, gkv, pk, pv, valid, anc, t, beams, 12, **kw)
+            sel = jg2.ancestry_mask(jnp.asarray(anc.numpy()), videos, beams,
+                                    jnp.int32(t - 1 if deferred else t))
+            for g in range(groups):
+                def grp(x):
+                    return _head_group(x, 12, g, groups).contiguous()
+                local = {k: grp(v) for k, v in kw.items()}
+                got = ba.beam_attention_ref(grp(q), grp(gkv), grp(pk), grp(pv), valid, anc, t,
+                                            beams, heads, **local)
+                torch.testing.assert_close(got, grp(whole), rtol=0, atol=1e-6)
+                want = jg2._beam_attend(
+                    jnp.asarray(grp(q).numpy()), jnp.asarray(grp(pk).numpy()),
+                    jnp.asarray(grp(pv).numpy()), jnp.asarray(grp(gkv)[:, 0].numpy()),
+                    jnp.asarray(grp(gkv)[:, 1].numpy()), jnp.asarray(valid.numpy()), sel,
+                    jg2.head_block_mask(jcfg), beams, jcfg,
+                    **{k: jnp.asarray(v.numpy()) for k, v in local.items()})
+                np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def selfcheck_case(videos, beams, s0, n, live):
+    """ops/selfcheck.py's seeded beam-attention inputs at 12 heads in f32."""
+    from video_caption_tpu_torch.ops import selfcheck
+
+    return selfcheck.beam_attention_case(videos, beams, s0, n, "cpu", heads=12,
+                                         dtype=torch.float32, live=live)

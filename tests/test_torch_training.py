@@ -336,13 +336,18 @@ def test_warmup_cosine_schedule_matches_optax():
         topt.warmup_cosine_decay(0.0, 1e-3, 5, 5)
 
 
-def test_mapper_trainer_refuses_more_than_one_device(tiny_cfg, tiny_params):
+def test_mapper_trainer_refuses_more_than_one_device(tiny_cfg, tiny_params, tmp_path):
+    """Without a process group of data * model ranks, a mesh of two devices
+    is refused (ValueError, as the JAX package's make_mesh refuses a device
+    count that does not match); ``fsdp`` on one device shards nothing, as
+    the JAX trainer's on a 1x1 mesh. The mesh paths themselves:
+    tests/test_torch_parallel.py."""
     cfg = _caption_cfg(tiny_cfg)
     tp = params_from_jax_numpy(_np(tiny_params), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        MapperTrainer(cfg, tp, mesh=MeshConfig(data=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        MapperTrainer(cfg, tp, fsdp=True)
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
+        MapperTrainer(cfg, tp, TrainArgs(out_dir=str(tmp_path)), mesh=MeshConfig(data=2))
+    fsdp = MapperTrainer(cfg, tp, TrainArgs(out_dir=str(tmp_path)), fsdp=True)
+    assert all(axis is None for _, spec in topt.leaves(fsdp.specs) for axis in spec)
 
 
 # ---- three steps of each trainer against JAX ------------------------------

@@ -30,3 +30,19 @@ LAYER_GEOMETRIES = [(batch, h, max_len) for batch in (1, 3, 8, 64) for h in (256
 """(B, H, max_len) of one fused decode step: x [B, H] over kvf [n_layer,
 max_len, B, 2H]; the CPU sweep checks the plan in bf16 and f32 with 132
 blocks and with 40."""
+
+TP_HEADS = (6, 3)
+"""A rank's heads under tensor parallelism: the 12 heads of ViT-B/16 and of
+GPT-2 over a model axis of 2 and of 4."""
+
+ENCODER_TP_GEOMETRIES = [(frames, 197, heads) for frames in (1, 16) for heads in TP_HEADS]
+"""(N, S, heads) of encoder_attention on a rank's head group: qkv
+[N, S, 3 * heads * 64] (16 frames: one request's video)."""
+
+BEAM_TP_GEOMETRIES = [(videos, beams, s0, n, heads)
+                      for videos, beams, s0, n in ((3, 3, 48, 24), (3, 4, 48, 40), (1, 4, 48, 40))
+                      for heads in TP_HEADS]
+"""(B, K, S0, N, heads) of one beam-attention layer on a rank's head group:
+the unified request's blocks (core and serving presets) and a grouped
+beam-4 decode; the CPU sweep takes t = 0, N/2 and N-1 in both modes, the
+GPU the same."""

@@ -319,7 +319,10 @@ def measure_training_step(
     dtype: str = "float32", device="cuda", model_cfg=None,
 ) -> Dict[str, Any]:
     """Training-step roofline of the mapper trainer (frozen ViT-B/16 +
-    mapper + GPT-2 teacher forcing; ``model_cfg`` another geometry).
+    mapper + GPT-2 teacher forcing; ``model_cfg`` another geometry). Under
+    a launcher's world the trainer's default mesh puts every rank on
+    ``data`` and each step takes this data rank's rows of the batch, as the
+    JAX package's ``shard_batch`` does.
     ``yuv420_wire`` (on, as in the JAX package) ships the batch as packed
     4:2:0 planes [B,T,plane_len] that the step converts on the device; off,
     uint8 RGB [B,T,3,S,S].

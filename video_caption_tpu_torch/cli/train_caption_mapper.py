@@ -8,8 +8,17 @@ reference-format file that both packages' engines load.
     python -m video_caption_tpu_torch.cli.train_caption_mapper --ann_path A.json \\
         --val_ann_path V.json --max_steps 100
 
-One device: --mesh_data / --mesh_model above 1 and --fsdp raise (not
-ported yet).
+On several devices, one process per rank under torchrun, a (data, model)
+mesh of the world (parallel/mesh.py): --mesh_data 0 takes the world size
+over --mesh_model, as the JAX CLI takes all devices; --fsdp shards the
+large leaves and their Adam state over the data axis as well:
+
+    torchrun --nproc_per_node 4 -m video_caption_tpu_torch.cli.train_caption_mapper \\
+        --ann_path A.json --mesh_data 2 --mesh_model 2 --fsdp
+
+Each rank runs on ``cuda:LOCAL_RANK`` (ranks beyond the cards share them,
+over ``--backend gloo``); ``--backend`` names the process group's (nccl on
+the card, gloo on the CPU by default).
 """
 from __future__ import annotations
 
@@ -34,10 +43,13 @@ def parse_args(argv=None):
     p.add_argument("--init_ckpt", default="", help="optional reference-format .pt to start from")
     p.add_argument("--out_dir", default="runs/mapper_finetune")
     p.add_argument("--ckpt_path", default="checkpoints/msvd_mapper_finetune")
-    p.add_argument("--mesh_data", type=int, default=0, help="0 = one device")
+    p.add_argument("--mesh_data", type=int, default=0,
+                   help="0 = the launcher's world size // --mesh_model (one device without one)")
     p.add_argument("--mesh_model", type=int, default=1)
     p.add_argument("--fsdp", action="store_true",
-                   help="ZeRO-style weight+optimizer sharding (not ported yet)")
+                   help="ZeRO-style weight+optimizer sharding over the data axis")
+    p.add_argument("--backend", default=None,
+                   help="process group backend (default: nccl on cuda, gloo on cpu)")
     p.add_argument("--u8_pixels", action="store_true",
                    help="ship uint8 pixels; normalize on device (4x less transfer)")
     p.add_argument("--device", default="cuda")
@@ -49,16 +61,23 @@ def main(argv=None) -> int:
     args = parse_args(argv)
 
     import torch
+    import torch.distributed as dist
 
     from video_caption_tpu_torch.config import MeshConfig, default_inference_config
     from video_caption_tpu_torch.data import build_dataloader
     from video_caption_tpu_torch.decode.tokenizer import get_tokenizer
     from video_caption_tpu_torch.engine import load_params, model_config_from_inference
+    from video_caption_tpu_torch.parallel.mesh import init_launched_group, local_cuda_device
     from video_caption_tpu_torch.training.mapper_trainer import MapperTrainer, TrainArgs
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available")
+    if device.type == "cuda" and device.index is None:
+        device = local_cuda_device()
+    world = dist.get_world_size() if init_launched_group(device, args.backend) else 1
+    mesh = MeshConfig(data=args.mesh_data or max(world // args.mesh_model, 1),
+                      model=args.mesh_model)
     tokenizer = get_tokenizer()
     loader = build_dataloader(
         args.ann_path, tokenizer, batch_size=args.batch_size, max_len=args.max_len,
@@ -84,7 +103,7 @@ def main(argv=None) -> int:
             epochs=args.epochs, max_steps=args.max_steps, val_every=args.val_every,
             out_dir=args.out_dir, ckpt_path=args.ckpt_path,
         ),
-        mesh=MeshConfig(data=max(args.mesh_data, 1), model=args.mesh_model),
+        mesh=mesh,
         fsdp=args.fsdp,
     )
 

@@ -74,6 +74,20 @@ The request program's core takes the weights, the video and the sampled
 groups' noise as inputs and holds no generator (``program.core``; the
 program draws the noise, ``request_noise``, then runs it): that core is
 what ``aot.export_request_program`` serializes.
+
+Under a mesh (``config.mesh`` of more than one device, or the one rank of an
+initialised process group; parallel/mesh.py), as in the JAX engine: every
+rank of the caller's process group builds the engine on its card
+(``cuda:LOCAL_RANK`` where ``device`` names none), the weights take the
+inference placement
+(TP over ``model``, ``wte`` replicated) and ``infer_batch`` splits its
+videos over ``data``. Each data rank loads its own videos, draws the
+sampled groups' noise for the whole batch from the engine's generator and
+takes its rows of it, decodes, and the ids are gathered over ``data``, so
+every rank returns the whole batch's results in order; ``infer`` runs its
+one video on every data rank. The request program runs uncaptured there and
+the overlapped cold path is off: the JAX engine gates its AOT programs and
+its overlap on the mesh in the same places.
 """
 from __future__ import annotations
 
@@ -90,6 +104,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from video_caption_tpu_torch.aot import RequestGraph
 from video_caption_tpu_torch.config import InferenceConfig
@@ -109,6 +124,9 @@ from video_caption_tpu_torch.models.convert import (load_reference_state, load_t
                                                     merge_params)
 from video_caption_tpu_torch.models.quantize import is_scale, quantize_gpt2_blocks
 from video_caption_tpu_torch.native import loader as native_loader
+from video_caption_tpu_torch.parallel import collectives as coll
+from video_caption_tpu_torch.parallel.mesh import (Mesh, check_heads, local_cuda_device,
+                                                   make_mesh, rows_of, shard_params)
 from video_caption_tpu_torch.preprocessing import frame_loader
 from video_caption_tpu_torch.preprocessing.yuv420 import (packed_plane_len,
                                                           yuv420_packed_to_rgb_chw)
@@ -191,15 +209,21 @@ class Dispatched:
 
 
 class InferenceEngine:
-    """frames_dir -> InferenceResult on one device."""
+    """frames_dir -> InferenceResult on one device, or on this rank of a
+    mesh (``config.mesh`` of more than one device, or the one rank of an
+    initialised process group)."""
 
     def __init__(self, config: InferenceConfig, params: Optional[dict] = None, seed: int = 0,
                  model_cfg: Optional[cm.CaptionModelConfig] = None, device="cuda"):
-        if config.mesh.num_devices > 1:
-            raise NotImplementedError("multi-device inference is not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but no CUDA device is available")
+        # the mesh comes from config.mesh over the caller's process group;
+        # the one rank of a group takes a 1x1 mesh, its collectives on it
+        on_mesh = config.mesh.num_devices > 1 or (dist.is_initialized()
+                                                  and dist.get_world_size() == 1)
+        if on_mesh and self.device.type == "cuda" and self.device.index is None:
+            self.device = local_cuda_device()
         self.config = config
         # an OOM inside a request logs the device's memory, then re-raises
         self.memory = MemoryManager(config.memory, self.device)
@@ -210,8 +234,17 @@ class InferenceEngine:
                      "kernel reads plain weights)")
             self.model_cfg = dataclasses.replace(self.model_cfg, gpt2=dataclasses.replace(
                 self.model_cfg.gpt2, use_pallas_decode_layer=False))
-        # a captured graph runs a fixed number of steps: early stop runs eagerly
-        self._capture = cc.aot_request_program and not cc.early_stop_decode
+        self.mesh = None
+        if on_mesh:
+            self._check_mesh_options(cc)
+            self.mesh = make_mesh(config.mesh, self.device)
+            self.model_cfg = dataclasses.replace(
+                self.model_cfg, vit=dataclasses.replace(self.model_cfg.vit, mesh=self.mesh),
+                gpt2=dataclasses.replace(self.model_cfg.gpt2, mesh=self.mesh))
+        # a captured graph runs a fixed number of steps: early stop runs
+        # eagerly; under a mesh the request program runs uncaptured
+        self._program_on = cc.aot_request_program and not cc.early_stop_decode
+        self._capture = self._program_on and self.mesh is None
         if cc.aot_request_program and cc.early_stop_decode:
             log.info("early_stop_decode: requests and batches run eagerly, group by group, "
                      "not on a captured graph")
@@ -221,6 +254,12 @@ class InferenceEngine:
             # inference weights are stored bf16: every decode step reads all
             # GPT-2 weights, so f32 storage doubles the bytes of the loop
             params = _cast_floating(params, torch.bfloat16)
+        if self.mesh is not None:
+            # the inference placement: with wte replicated every model rank
+            # computes a decode step's full logits and selects on its own,
+            # so no counterpart of the JAX engine's spmd_decode gather is
+            # needed
+            params, _ = shard_params(params, self.mesh, replicate_embeddings=True)
         if cc.quantize_decoder_int8:
             # after the bf16 cast, as the JAX engine: the scales stay f32
             # and the int8 tensors stay int8 in device memory
@@ -254,6 +293,22 @@ class InferenceEngine:
         self._video_cache_total = 0
         self._video_cache_bytes = int(
             os.environ.get("VIDEO_CAPTION_VIDEO_CACHE_MB", "256")) * 1024 * 1024
+
+    def _check_mesh_options(self, cc) -> None:
+        """Under a model axis above 1 (checked before the mesh is made),
+        int8 block weights and the decode-layer kernel raise: the JAX rules
+        replicate the int8 weights beside sharded biases, and the kernel
+        runs all layers in one launch, with no room for a row-parallel
+        product's all-reduce; the heads must split over the axis."""
+        mc, model = self.model_cfg, self.config.mesh.model
+        if model > 1:
+            if cc.quantize_decoder_int8:
+                raise NotImplementedError("quantize_decoder_int8 under a mesh with model > 1")
+            if mc.gpt2.use_pallas_decode_layer:
+                raise NotImplementedError("use_pallas_decode_layer under a mesh with model > 1")
+            shape = Mesh(data=self.config.mesh.data, model=model)
+            check_heads(mc.vit.num_heads, shape, "ViT")
+            check_heads(mc.gpt2.n_head, shape, "GPT-2")
 
     @classmethod
     def from_config(cls, config: InferenceConfig) -> "InferenceEngine":
@@ -463,15 +518,15 @@ class InferenceEngine:
             self._batch_program = self._make_program(fused=False)
         return self._batch_program
 
-    def _program_for(self, video: torch.Tensor):
+    def _program_for(self, videos: int):
         cc = self.config.compile
-        if cc.fuse_request_program or (video.shape[0] == 1 and cc.fuse_single_request):
+        if cc.fuse_request_program or (videos == 1 and cc.fuse_single_request):
             return self._fused_infer_program()
         return self._batch_infer_program()
 
     def _serves_on_program(self, video: torch.Tensor) -> bool:
         cc = self.config.compile
-        return video.shape[0] == 1 and self._capture and (
+        return video.shape[0] == 1 and self._program_on and (
             cc.fuse_single_request or cc.fuse_request_program)
 
     @staticmethod
@@ -490,7 +545,7 @@ class InferenceEngine:
         """The program that serves ``video``'s shape (``_program_for``),
         captured on first use of that shape with the engine's generator
         registered."""
-        program, _ = self._program_for(video)
+        program, _ = self._program_for(video.shape[0])
         return self._graph_of(self._graphs, tuple(video.shape),
                               lambda x: _pack(program(x)), video, (self.generator,))
 
@@ -522,8 +577,28 @@ class InferenceEngine:
 
     def _dispatch_videos(self, video: torch.Tensor) -> Dispatched:
         """The program that serves ``video`` [V,T,3,S,S], dispatched."""
-        program, group_list = self._program_for(video)
+        if self.mesh is not None:
+            return self._dispatch_mesh(video, video.shape[0], split=False)
+        program, group_list = self._program_for(video.shape[0])
         return self._dispatch(program, group_list, video, self.request_graph)
+
+    def _dispatch_mesh(self, video: torch.Tensor, videos: int, split: bool) -> Dispatched:
+        """The program that serves ``videos`` videos, on this rank of the
+        mesh, uncaptured. With ``split``, ``video`` holds this data rank's
+        rows: the sampled groups' noise is drawn for the whole batch (the
+        same draws on every rank, so the results equal the single-device
+        engine's) and each rank decodes on its rows of it, then every
+        group's ids are gathered over ``data``. Without, every rank runs
+        the whole ``video``."""
+        program, group_list = self._program_for(videos)
+        noises = self.request_noise(videos)
+        if split:
+            noises = tuple(None if n is None else rows_of(n, self.mesh, dim=1) for n in noises)
+        with torch.inference_mode():
+            ids = program.core(self.params, video, noises)
+            if split:
+                ids = tuple(coll.all_gather(x, self.mesh, coll.DATA_AXIS) for x in ids)
+        return Dispatched(_pack(ids).cpu(), None, group_list, videos)
 
     def _dispatch_feats(self, feats: torch.Tensor) -> Dispatched:
         """The feats request program on ``feats`` [1,T,E], dispatched (the
@@ -772,7 +847,7 @@ class InferenceEngine:
         program); a hit, or the path off, the chunked upload and
         ``infer_video``."""
         with self.memory.oom_guard():
-            if self.config.compile.overlap_single_upload:
+            if self.config.compile.overlap_single_upload and self.mesh is None:
                 feats = self._load_feats_overlapped(frames_dir)
                 if feats is not None:
                     return _result(self._collect_videos(self._dispatch_feats(feats))[0])
@@ -782,8 +857,14 @@ class InferenceEngine:
         """Load, upload and enqueue a batch; returns without waiting for the
         device. Pair with ``infer_batch_collect``: a caller can dispatch
         batch N+1 (its JPEG decode and upload included) before collecting
-        batch N."""
+        batch N. Under a mesh each data rank loads its own videos (the
+        batch must divide over ``data``) and the handle holds the whole
+        batch's ids."""
         with self.memory.oom_guard():
+            if self.mesh is not None:
+                mine = rows_of(np.asarray(list(frames_dirs), dtype=object), self.mesh)
+                return self._dispatch_mesh(self._load_videos(list(mine)), len(frames_dirs),
+                                           split=True)
             return self._dispatch_videos(self._load_videos(frames_dirs))
 
     def infer_batch_collect(self, handle: Dispatched) -> List[InferenceResult]:
@@ -811,7 +892,8 @@ class InferenceEngine:
         c = self.config
         s, t = c.image_size, c.num_frames
         self.infer_video(torch.zeros((1, t, 3, s, s), dtype=torch.uint8, device=self.device))
-        if c.compile.overlap_single_upload and self.model_cfg.vit.pool == "cls":
+        if (c.compile.overlap_single_upload and self.mesh is None
+                and self.model_cfg.vit.pool == "cls"):
             chunk = _OVERLAP_CHUNK
             kinds = ["rgb"]
             if c.compile.yuv420_wire and native_loader.native_available():

@@ -124,8 +124,9 @@ def frames_to_prefix(params: Params, per_frame: torch.Tensor,
 
 def build_decoder_inputs(params: Params, prefix: torch.Tensor, input_ids: torch.Tensor,
                          cfg: CaptionModelConfig) -> torch.Tensor:
-    """concat(prefix_embeds, wte(input_ids))."""
-    tok = params["decoder"]["wte"][input_ids.long()]
+    """concat(prefix_embeds, wte(input_ids)); a vocab-sharded ``wte`` (the
+    training placement under TP) through the vocab-parallel lookup."""
+    tok = g2.embed_tokens(params["decoder"], input_ids, cfg.gpt2)
     return torch.cat([prefix.to(tok.dtype), tok], dim=1)
 
 
@@ -134,7 +135,9 @@ def compute_loss(params: Params, video: torch.Tensor, input_ids: torch.Tensor,
                  labels: torch.Tensor = None) -> torch.Tensor:
     """Teacher-forcing loss: the prefix positions get attention 1 and label
     -100, positions are ``cumsum(mask) - 1`` clamped at 0, caption padding
-    is ignored."""
+    is ignored. Under a mesh (``cfg.gpt2.mesh``) the batch is this data
+    rank's rows and the loss its share (``g2.lm_loss``): the data ranks'
+    losses sum to the whole batch's."""
     b = video.shape[0]
     if cfg.freeze_encoder:
         with torch.no_grad():
@@ -153,4 +156,5 @@ def compute_loss(params: Params, video: torch.Tensor, input_ids: torch.Tensor,
         labels = torch.where(attn_mask > 0, input_ids, -100)
     full_labels = torch.cat([torch.full((b, p), -100, dtype=labels.dtype, device=dev), labels],
                             dim=1)
-    return g2.lm_loss(logits, full_labels)
+    return g2.lm_loss(logits, full_labels, cfg.gpt2.mesh,
+                      vocab_parallel=g2.vocab_sharded(params["decoder"], cfg.gpt2))

@@ -42,6 +42,17 @@ The LM head of every decode step runs through the lm-head kernel
 The four block matmul weights may be stored int8 with f32 scales
 (models/quantize.py); every product takes its weight through
 ``block_weight``, which dequantizes it into the compute dtype.
+
+Under a mesh with a model axis (``GPT2Config.mesh``, parallel/mesh.py) the
+blocks hold the rank's head group: ``attn`` and ``fc`` are column parallel,
+``proj`` and ``out`` row parallel (their biases added once, after the
+all-reduce), the caches hold the local heads (``local_heads``,
+``local_embd``) and the attention kernels run on them. The inference
+placement keeps ``wte`` replicated, so every model rank computes the full
+logits and selects on its own. The training placement shards ``wte``'s
+vocab where it divides: ``gpt2_logits_nocache`` then returns the rank's
+vocab shard of the logits and ``lm_loss`` takes the vocab-parallel
+cross-entropy.
 """
 from __future__ import annotations
 
@@ -52,11 +63,12 @@ import torch
 import torch.nn.functional as F
 
 from video_caption_tpu_torch.models.quantize import block_weight, is_quantized
-from video_caption_tpu_torch.models.vit import layer_norm, linear
+from video_caption_tpu_torch.models.vit import layer_norm, linear, row_linear
 from video_caption_tpu_torch.ops.beam_attention import beam_attention
 from video_caption_tpu_torch.ops.decode_attention import decode_attention
 from video_caption_tpu_torch.ops.decode_layer import gpt2_decode_step
 from video_caption_tpu_torch.ops.lm_head import WINDOW, lm_head_stats
+from video_caption_tpu_torch.parallel import collectives as coll
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -89,10 +101,24 @@ class GPT2Config:
     time-major generated region [L,N,2,B,H] (``gpt2_sample_step``). Taken
     only when neither use_pallas_decode_layer nor use_pallas_decode is on;
     tokens are those of the contiguous cache."""
+    mesh: Any = None
+    """The rank's ``parallel.mesh.Mesh``: with a model axis above 1 the
+    blocks hold the rank's head group (tensor parallel); under a data axis
+    above 1 ``lm_loss`` divides by the token count of the whole batch."""
 
     @property
     def head_dim(self) -> int:
         return self.n_embd // self.n_head
+
+    @property
+    def local_heads(self) -> int:
+        """Heads of this rank: all of them, or its group under TP."""
+        return self.n_head // self.mesh.model if coll.tensor_parallel(self.mesh) else self.n_head
+
+    @property
+    def local_embd(self) -> int:
+        """Width of this rank's attention (its heads times ``head_dim``)."""
+        return self.local_heads * self.head_dim
 
 
 def init_gpt2_params(gen: torch.Generator, cfg: GPT2Config, device) -> Params:
@@ -137,12 +163,16 @@ def init_cache(cfg: GPT2Config, batch: int, max_len: int, device,
     if layout == "auto":
         layout = "kvf" if cfg.use_pallas_decode_layer else "contiguous"
     if layout == "kvf":
+        if coll.tensor_parallel(cfg.mesh):
+            raise NotImplementedError("use_pallas_decode_layer under a model axis above 1: the "
+                                      "kernel runs all layers in one launch, with no room for "
+                                      "the all-reduce of a row-parallel product")
         shape = (cfg.n_layer, max_len, batch, 2 * cfg.n_embd)
         return {"kvf": torch.zeros(shape, dtype=cfg.dtype, device=device)}
     if layout == "beam_gen":
-        shape = (cfg.n_layer, max_len, 2, batch, cfg.n_embd)
+        shape = (cfg.n_layer, max_len, 2, batch, cfg.local_embd)
     elif layout == "contiguous":
-        shape = (cfg.n_layer, batch, max_len, 2, cfg.n_head, cfg.head_dim)
+        shape = (cfg.n_layer, batch, max_len, 2, cfg.local_heads, cfg.head_dim)
     else:
         raise ValueError(f"unknown cache layout {layout!r}")
     return {"kv": torch.zeros(shape, dtype=cfg.dtype, device=device)}
@@ -196,18 +226,21 @@ def _position_embeds(params: Params, positions: torch.Tensor, dt: torch.dtype) -
 
 
 def _mlp(x: torch.Tensor, blk: Params, cfg: GPT2Config) -> torch.Tensor:
-    m = linear(layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], cfg.ln_eps),
-               block_weight(blk, "fc_w", x.dtype), blk["fc_b"])
+    a_in = coll.column_input(layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], cfg.ln_eps),
+                             cfg.mesh)
+    m = linear(a_in, block_weight(blk, "fc_w", x.dtype), blk["fc_b"])
     m = F.gelu(m.float(), approximate="tanh").to(x.dtype)
-    return linear(m, block_weight(blk, "out_w", x.dtype), blk["out_b"])
+    return row_linear(m, block_weight(blk, "out_w", x.dtype), blk["out_b"], cfg.mesh)
 
 
-def _qkv(a_in: torch.Tensor, blk: Params) -> torch.Tensor:
+def _qkv(a_in: torch.Tensor, blk: Params, cfg: GPT2Config) -> torch.Tensor:
+    """The fused QKV product: [.., 3 * local_embd], the rank's head group."""
+    a_in = coll.column_input(a_in, cfg.mesh)
     return linear(a_in, block_weight(blk, "attn_w", a_in.dtype), blk["attn_b"])
 
 
-def _proj(a_out: torch.Tensor, blk: Params) -> torch.Tensor:
-    return linear(a_out, block_weight(blk, "proj_w", a_out.dtype), blk["proj_b"])
+def _proj(a_out: torch.Tensor, blk: Params, cfg: GPT2Config) -> torch.Tensor:
+    return row_linear(a_out, block_weight(blk, "proj_w", a_out.dtype), blk["proj_b"], cfg.mesh)
 
 
 def _attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -221,7 +254,8 @@ def _attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if cfg.use_pallas_decode and s == 1:
         # one query token: valid_mask marks only the columns up to its
         # position, so it already encodes causality
-        return decode_attention(q[:, 0], k_cache, v_cache, valid_mask).reshape(b, 1, cfg.n_embd)
+        out = decode_attention(q[:, 0], k_cache, v_cache, valid_mask)
+        return out.reshape(b, 1, cfg.local_embd)
     max_len = k_cache.shape[1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) \
         * (cfg.head_dim ** -0.5)
@@ -230,7 +264,7 @@ def _attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     mask = (col[None, :] <= row[:, None])[None, None] & (valid_mask[:, None, None, :] > 0)
     attn = torch.softmax(torch.where(mask, logits, _NEG), dim=-1).to(dt)
     out = torch.einsum("bhqk,bkhd->bqhd", attn, v_cache.to(dt))
-    return out.reshape(b, s, cfg.n_embd)
+    return out.reshape(b, s, cfg.local_embd)
 
 
 def _attend_deferred(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -253,7 +287,7 @@ def _attend_deferred(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     attn = torch.softmax(torch.cat([logits, lg_self], dim=-1), dim=-1).to(dt)
     out = torch.einsum("bhqk,bkhd->bqhd", attn[..., :max_len], v_cache.to(dt))
     out = out + attn[..., max_len:].permute(0, 3, 1, 2) * v_new.to(dt)
-    return out.reshape(b, 1, cfg.n_embd)
+    return out.reshape(b, 1, cfg.local_embd)
 
 
 def gpt2_forward(
@@ -286,7 +320,7 @@ def gpt2_forward(
     for layer in range(cfg.n_layer):
         blk = {k: v[layer] for k, v in blocks.items()}
         a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
-        qkv = _qkv(a_in, blk).reshape(b, s, 3, cfg.n_head, cfg.head_dim)
+        qkv = _qkv(a_in, blk, cfg).reshape(b, s, 3, cfg.local_heads, cfg.head_dim)
         if deferred:
             # the new K/V wait for one stacked write after the loop
             kv_news.append(qkv[:, 0, 1:3])
@@ -296,7 +330,7 @@ def gpt2_forward(
             kv[layer, :, offset:offset + s] = qkv[:, :, 1:3].to(kv.dtype)
             a_out = _attend(qkv[:, :, 0], kv[layer, :, :, 0], kv[layer, :, :, 1],
                             offset, valid_mask, cfg)
-        x = x + _proj(a_out, blk)
+        x = x + _proj(a_out, blk, cfg)
         x = x + _mlp(x, blk, cfg)
     if deferred:
         kv[:, :, offset] = torch.stack(kv_news).to(kv.dtype)     # [L, B, 2, nh, hd]
@@ -353,7 +387,7 @@ def gpt2_beam_step(
     K/V as the self column) and all layers' K/V land in one [L, 2, R, H]
     store after the layer loop."""
     dt = cfg.dtype
-    r, h = token_embeds.shape
+    r, h = token_embeds.shape[0], cfg.local_embd
     x = token_embeds.to(dt) + _position_embeds(params, positions, dt)   # [R, H]
     gkv = gen_cache["kv"]
     pk_all, pv_all = prefill_cache["k"], prefill_cache["v"]
@@ -363,7 +397,7 @@ def gpt2_beam_step(
     for layer in range(cfg.n_layer):
         blk = {k: v[layer] for k, v in blocks.items()}
         a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
-        qkv = _qkv(a_in, blk).reshape(r, 3, h)
+        qkv = _qkv(a_in, blk, cfg).reshape(r, 3, h)
         if deferred:
             kv_news.append(qkv[:, 1:3].transpose(0, 1))
             new = dict(k_new=qkv[:, 1], v_new=qkv[:, 2])
@@ -371,8 +405,8 @@ def gpt2_beam_step(
             gkv[layer, t] = qkv[:, 1:3].transpose(0, 1).to(gkv.dtype)
             new = {}
         out = beam_attention(qkv[:, 0], gkv[layer], pk_all[layer], pv_all[layer],
-                             prefill_valid, anc, t, num_beams, cfg.n_head, **new)
-        x = x + _proj(out, blk)
+                             prefill_valid, anc, t, num_beams, cfg.local_heads, **new)
+        x = x + _proj(out, blk, cfg)
         x = x + _mlp(x, blk, cfg)
     if deferred:
         gkv[:, t] = torch.stack(kv_news).to(gkv.dtype)            # [L, 2, R, H]
@@ -393,7 +427,7 @@ def _sample_attend(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor, gk: torc
     in the compute dtype, as there."""
     dt = cfg.dtype
     b, s0 = prefill_valid.shape
-    n, nh, hd = gk.shape[0], cfg.n_head, cfg.head_dim
+    n, nh, hd = gk.shape[0], cfg.local_heads, cfg.head_dim
     scale = hd ** -0.5
     qh = q.reshape(b, nh, hd).float()
     lp = torch.einsum("bqd,bsqd->bqs", qh, pk.reshape(b, s0, nh, hd).float()) * scale
@@ -411,7 +445,7 @@ def _sample_attend(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor, gk: torc
                          gv.reshape(n, b, nh, hd).float()).to(dt)
     if deferred:
         out_g = out_g + attn[..., s0 + n:] * v_new.to(dt).reshape(b, nh, hd)
-    return (out_p + out_g).reshape(b, cfg.n_embd)
+    return (out_p + out_g).reshape(b, cfg.local_embd)
 
 
 def gpt2_sample_step(
@@ -432,7 +466,7 @@ def gpt2_sample_step(
     ``deferred_cache_write``) and returns (lm_stats 4-tuple without row
     stats, gen_cache)."""
     dt = cfg.dtype
-    b, h = token_embeds.shape
+    b, h = token_embeds.shape[0], cfg.local_embd
     x = token_embeds.to(dt) + _position_embeds(params, positions, dt)   # [B, H]
     gkv = gen_cache["kv"]
     pk_all, pv_all = prefill_cache["k"], prefill_cache["v"]
@@ -442,7 +476,7 @@ def gpt2_sample_step(
     for layer in range(cfg.n_layer):
         blk = {k: v[layer] for k, v in blocks.items()}
         a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
-        qkv = _qkv(a_in, blk).reshape(b, 3, h)
+        qkv = _qkv(a_in, blk, cfg).reshape(b, 3, h)
         if deferred:
             kv_news.append(qkv[:, 1:3].transpose(0, 1))
             new = dict(k_new=qkv[:, 1], v_new=qkv[:, 2])
@@ -451,7 +485,7 @@ def gpt2_sample_step(
             new = {}
         out = _sample_attend(qkv[:, 0], pk_all[layer], pv_all[layer], gkv[layer, :, 0],
                              gkv[layer, :, 1], prefill_valid, t, cfg, **new)
-        x = x + _proj(out, blk)
+        x = x + _proj(out, blk, cfg)
         x = x + _mlp(x, blk, cfg)
     if deferred:
         gkv[:, t] = torch.stack(kv_news).to(gkv.dtype)            # [L, 2, B, H]
@@ -459,11 +493,26 @@ def gpt2_sample_step(
     return lm_stats(x, wte_t, cfg, need_row_stats=False), gen_cache
 
 
+def vocab_sharded(params: Params, cfg: GPT2Config) -> bool:
+    """Whether ``wte`` holds only this rank's vocab shard (the training
+    placement under TP where the vocab divides)."""
+    return coll.tensor_parallel(cfg.mesh) and params["wte"].shape[0] != cfg.vocab_size
+
+
+def embed_tokens(params: Params, ids: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:
+    """wte rows of ``ids``, from a vocab-sharded ``wte`` through the
+    vocab-parallel lookup."""
+    if vocab_sharded(params, cfg):
+        return coll.vocab_parallel_embedding(params["wte"], ids, cfg.mesh)
+    return params["wte"][ids.long()]
+
+
 def gpt2_logits_nocache(params: Params, inputs_embeds: torch.Tensor, positions: torch.Tensor,
                         attn_mask: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:
     """Cache-free training forward (teacher forcing): [B,S,H] embeddings,
     [B,S] positions and [B,S] mask (1 for real tokens) -> [B,S,V] f32
-    logits. Each layer attends over the step's own K/V with the masking and
+    logits (with a vocab-sharded ``wte``, the rank's [B,S,V/m] shard of
+    them). Each layer attends over the step's own K/V with the masking and
     rounding of ``_attend`` at offset 0 (causal and ``attn_mask``), and
     writes no cache, so autograd can differentiate it."""
     dt = cfg.dtype
@@ -474,19 +523,34 @@ def gpt2_logits_nocache(params: Params, inputs_embeds: torch.Tensor, positions: 
     for layer in range(cfg.n_layer):
         blk = {k: v[layer] for k, v in blocks.items()}
         a_in = layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], cfg.ln_eps)
-        qkv = _qkv(a_in, blk).reshape(b, s, 3, cfg.n_head, cfg.head_dim)
+        qkv = _qkv(a_in, blk, cfg).reshape(b, s, 3, cfg.local_heads, cfg.head_dim)
         a_out = _attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], 0, valid, cfg)
-        x = x + _proj(a_out, blk)
+        x = x + _proj(a_out, blk, cfg)
         x = x + _mlp(x, blk, cfg)
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.ln_eps)
+    if vocab_sharded(params, cfg):
+        x = coll.copy_to_model(x, cfg.mesh)
     return x.float() @ params["wte"].to(dt).float().t()
 
 
-def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """HF-style shifted causal-LM loss in f32; label -100 is ignored."""
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, mesh=None,
+            vocab_parallel: bool = False) -> torch.Tensor:
+    """HF-style shifted causal-LM loss in f32; label -100 is ignored.
+    ``vocab_parallel``: ``logits`` are the rank's vocab shard (the
+    cross-entropy's reductions over ``mesh``'s model axis). Under a data
+    axis above 1 the sum of this rank's token losses is divided by the
+    token count of the whole batch: the ranks' losses (and gradients) then
+    sum to the single-device batch's."""
     shift_logits = logits[:, :-1, :].float()
     shift_labels = labels[:, 1:].long()
     mask = shift_labels != -100
-    logp = torch.log_softmax(shift_logits, dim=-1)
-    nll = -logp.gather(-1, torch.where(mask, shift_labels, 0)[..., None])[..., 0]
-    return torch.where(mask, nll, 0.0).sum() / mask.sum().clamp(min=1)
+    targets = torch.where(mask, shift_labels, 0)
+    if vocab_parallel:
+        nll = coll.vocab_parallel_nll(shift_logits, targets, mesh)
+    else:
+        logp = torch.log_softmax(shift_logits, dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+    count = mask.sum()
+    if mesh is not None and mesh.data > 1:
+        count = coll.all_reduce(count, mesh, coll.DATA_AXIS)
+    return torch.where(mask, nll, 0.0).sum() / count.clamp(min=1)

@@ -10,6 +10,11 @@ token stream reaches the fused pool kernel (ops/fused_pool.py). Both are
 differentiable, so the encoder trains (models/align.py) with the kernels in
 its forward; ``remat`` recomputes each block in the backward pass.
 
+Under a mesh with a model axis (``ViTConfig.mesh``, parallel/mesh.py) a
+block holds its rank's head group: the fused QKV product and fc1 are column
+parallel (their input through ``copy_to_model``), the attention kernel runs
+on the local heads, and proj and fc2 are row parallel (``row_linear``).
+
 Rounding points follow the JAX package: LayerNorm in f32 then cast back, the
 tanh-GELU in f32, attention probabilities cast to the compute dtype before
 AV, the encoder output cast to f32.
@@ -24,6 +29,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from video_caption_tpu_torch.ops.encoder_attention import encoder_attention
+from video_caption_tpu_torch.parallel.collectives import (column_input, row_output,
+                                                          tensor_parallel)
 from video_caption_tpu_torch.ops.fused_pool import fused_pool_temporal
 
 Params = Dict[str, Any]
@@ -49,6 +56,9 @@ class ViTConfig:
     """Recompute each block in the backward pass (training only): the
     forward keeps only the blocks' inputs, and the backward reruns each
     block, the attention kernel included, before differentiating it."""
+    mesh: Any = None
+    """The rank's ``parallel.mesh.Mesh``: with a model axis above 1 the
+    blocks hold the rank's head group (tensor parallel)."""
 
     @property
     def num_patches(self) -> int:
@@ -61,6 +71,11 @@ class ViTConfig:
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
+
+    @property
+    def local_heads(self) -> int:
+        """Heads of this rank: all of them, or its group under TP."""
+        return self.num_heads // self.mesh.model if tensor_parallel(self.mesh) else self.num_heads
 
 
 def trunc_normal(shape, std: float, gen: torch.Generator, device) -> torch.Tensor:
@@ -116,16 +131,27 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return F.linear(x, w.to(x.dtype).t(), b.to(x.dtype))
 
 
+def row_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, mesh) -> torch.Tensor:
+    """``linear`` of a row-parallel product: under TP this rank's partial
+    product over its input columns, all-reduced over ``model``, then the
+    replicated bias added once."""
+    if not tensor_parallel(mesh):
+        return linear(x, w, b)
+    return row_output(F.linear(x, w.to(x.dtype).t()), b, mesh)
+
+
 def _block(x: torch.Tensor, blk: Params, cfg: ViTConfig) -> torch.Tensor:
-    qkv = linear(layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], 1e-6),
-                 blk["qkv_w"], blk["qkv_b"])                      # [N,S,3H]
-    x = x + linear(encoder_attention(qkv, cfg.num_heads), blk["proj_w"], blk["proj_b"])
-    y = linear(layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], 1e-6),
+    mesh = cfg.mesh
+    qkv = linear(column_input(layer_norm(x, blk["ln1_scale"], blk["ln1_bias"], 1e-6), mesh),
+                 blk["qkv_w"], blk["qkv_b"])                      # [N,S,3H] (local heads)
+    x = x + row_linear(encoder_attention(qkv, cfg.local_heads), blk["proj_w"], blk["proj_b"],
+                       mesh)
+    y = linear(column_input(layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], 1e-6), mesh),
                blk["fc1_w"], blk["fc1_b"])
     approx = "tanh" if cfg.gelu_approx else "none"
     y = F.gelu(y.float(), approximate=approx).to(x.dtype) if cfg.gelu_f32 \
         else F.gelu(y, approximate=approx)
-    return x + linear(y, blk["fc2_w"], blk["fc2_b"])
+    return x + row_linear(y, blk["fc2_w"], blk["fc2_b"], mesh)
 
 
 def vit_trunk(params: Params, images: torch.Tensor, cfg: ViTConfig,

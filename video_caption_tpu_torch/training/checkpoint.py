@@ -14,8 +14,11 @@ package's directory holds its Orbax payload and the same metadata file.
   "best_val", "args"}`` with the port's tree as f32 CPU tensors.
 
 Either payload carries ``opt_state`` when the caller passes one, as the JAX
-loop's stage-1/2 checkpoints do. ``restore_params`` reads either back,
-shaped like a given tree; ``load_metadata`` reads ``train_meta.json``.
+loop's stage-1/2 checkpoints do. Sharded parameters (``mesh`` and the spec
+tree of ``parallel.mesh.shard_params``) are gathered by every rank, head
+grouping undone, and written by rank 0 alone. ``restore_params`` reads
+either back, shaped like a given tree; ``load_metadata`` reads
+``train_meta.json``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from video_caption_tpu_torch.models.caption_model import CaptionModelConfig
 from video_caption_tpu_torch.models.convert import (load_reference_state, save_payload,
                                                     save_torch_checkpoint)
+from video_caption_tpu_torch.parallel.mesh import Mesh, gather_params
 
 log = logging.getLogger(__name__)
 
@@ -46,11 +50,18 @@ def _cpu(tree: Any) -> Any:
 
 def save_checkpoint(path: str, params: Mapping, step: int = 0, epoch: int = 0,
                     best_val: float = float("inf"), args: Optional[Dict] = None,
-                    opt_state: Any = None, cfg: Any = None) -> Path:
+                    opt_state: Any = None, cfg: Any = None, mesh: Optional[Mesh] = None,
+                    specs: Any = None) -> Path:
     """Write ``<path>/model.pt`` and ``<path>/train_meta.json``; returns the
     ``model.pt`` path. ``cfg`` (a CaptionModelConfig) selects the
-    reference-format payload."""
+    reference-format payload. With ``specs``, ``params`` are this rank's
+    shards on ``mesh``: every rank of the mesh must call, and rank 0 alone
+    writes the gathered tree."""
     out = Path(path).absolute()
+    if specs is not None:
+        params = gather_params(params, specs, mesh)
+        if mesh.rank != 0:
+            return out / MODEL_FILE
     out.mkdir(parents=True, exist_ok=True)
     meta = {"step": step, "epoch": epoch, "best_val": best_val, "args": args or {}}
     model_file = out / MODEL_FILE

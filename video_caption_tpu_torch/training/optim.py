@@ -7,7 +7,9 @@ chain out over its dict of tensors (``TreeAdam``), in optax's order:
 1. ``clip_by_global_norm(1.0)`` over EVERY leaf's gradient, frozen leaves
    included (gradients flow through the frozen GPT-2 blocks to the prefix,
    and the JAX step differentiates the whole tree), so the caller computes
-   gradients even where the learning rate is 0;
+   gradients even where the learning rate is 0; on sharded parameters the
+   caller's ``norm_fn`` gives the norm of the whole tree (``global_norm``
+   with ``replicas`` and ``reduce``);
 2. ``scale_by_adam`` (b1 0.9, b2 0.999, eps 1e-8 added to the square root,
    bias-corrected);
 3. decayed weights under the ``lr > 0`` mask;
@@ -76,10 +78,21 @@ def _trains(rate: Rate) -> bool:
     return bool((rate > 0).any()) if isinstance(rate, torch.Tensor) else rate > 0
 
 
-def global_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (None counts as 0), f32."""
-    sq = [g.float().square().sum() for g in grads if g is not None]
-    return torch.stack(sq).sum().sqrt() if sq else torch.zeros(())
+def global_norm(grads: List[Optional[torch.Tensor]], replicas: Optional[List[int]] = None,
+                reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (None counts as 0), f32.
+
+    Sharded gradients (each rank holding its piece of every leaf):
+    ``replicas[i]`` ranks hold the same piece of gradient i, and ``reduce``
+    sums a scalar over every rank. Each rank counts its pieces
+    1 / ``replicas`` times, so after the sum every distinct piece counts
+    once and a replicated leaf once: the single-device norm."""
+    replicas = replicas or [1] * len(grads)
+    sq = [g.float().square().sum() / r for g, r in zip(grads, replicas) if g is not None]
+    total = torch.stack(sq).sum() if sq else torch.zeros(())
+    if reduce is not None:
+        total = reduce(total)
+    return total.sqrt()
 
 
 class TreeAdam:
@@ -89,7 +102,8 @@ class TreeAdam:
 
     def __init__(self, lr_tree: Mapping, weight_decay: float, decay_all: bool = False,
                  clip_norm: Optional[float] = None, schedule: Optional[Schedule] = None,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 norm_fn: Optional[Callable[[Mapping], torch.Tensor]] = None):
         self.rates = dict(leaves(lr_tree))
         self.decays = {p: decay_all or _trains(r) for p, r in self.rates.items()}
         self.active = {p: self.decays[p] or _trains(r) for p, r in self.rates.items()}
@@ -97,6 +111,7 @@ class TreeAdam:
         self.clip_norm = clip_norm
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.norm_fn = norm_fn
         self.count = 0
         self.mu: Dict[str, torch.Tensor] = {}
         self.nu: Dict[str, torch.Tensor] = {}
@@ -104,9 +119,10 @@ class TreeAdam:
     @torch.no_grad()
     def step(self, params: Params, grads: Mapping[str, Optional[torch.Tensor]]) -> torch.Tensor:
         """One update of ``params`` (in place) from ``grads`` {path: gradient
-        or None for a leaf the loss does not reach}."""
+        or None for a leaf the loss does not reach}; the global norm is
+        ``norm_fn(grads)`` where one was given."""
         flat = dict(leaves(params))
-        norm = global_norm(list(grads.values()))
+        norm = self.norm_fn(grads) if self.norm_fn else global_norm(list(grads.values()))
         self.count += 1
         c1 = 1.0 - self.b1 ** self.count
         c2 = 1.0 - self.b2 ** self.count
@@ -135,10 +151,12 @@ class TreeAdam:
         return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
 
 
-def build_optimizer(lr_tree: Mapping, weight_decay: float = 0.01) -> TreeAdam:
+def build_optimizer(lr_tree: Mapping, weight_decay: float = 0.01,
+                    norm_fn: Optional[Callable[[Mapping], torch.Tensor]] = None) -> TreeAdam:
     """AdamW whose update is scaled leaf-wise by ``lr_tree``, after clipping
-    the gradients' global norm to 1.0; weights decay where the rate is > 0."""
-    return TreeAdam(lr_tree, weight_decay, clip_norm=1.0)
+    the gradients' global norm (``norm_fn``'s on sharded parameters) to
+    1.0; weights decay where the rate is > 0."""
+    return TreeAdam(lr_tree, weight_decay, clip_norm=1.0, norm_fn=norm_fn)
 
 
 def adamw(params: Params, lr: Union[float, Schedule], weight_decay: float = 1e-4,
