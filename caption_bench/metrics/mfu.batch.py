@@ -1,0 +1,6 @@
+"""mfu.batch: Model FLOPs of the videos completed in the traced slice over its seconds, as a % of the bf16 peak."""
+from caption_bench import readers
+
+
+def read(run):
+    return readers.mfu(run, "batch")
