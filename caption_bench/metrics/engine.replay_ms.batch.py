@@ -1,0 +1,6 @@
+"""engine.replay_ms.batch: host milliseconds inside engine.replay per engine.dispatch in the traced slice."""
+from caption_bench import program_spans
+
+
+def read(run):
+    return program_spans.ms_per_dispatch(run, "batch", "engine.replay")

@@ -278,12 +278,33 @@ def test_queue_isolates_errors_per_request():
     q.stop()
 
 
+def _is_tracing_call(node) -> bool:
+    return (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+            and isinstance(node.func.value, ast.Name) and node.func.value.id == "tracing")
+
+
+class _WithoutTracing(ast.NodeTransformer):
+    """Drops the port's tracing statements: ``tracing.*(...)`` calls made as
+    statements, and ``with tracing.*(...):`` blocks, which give way to their
+    bodies."""
+
+    def visit_Expr(self, node):
+        return None if _is_tracing_call(node.value) else node
+
+    def visit_With(self, node):
+        self.generic_visit(node)
+        if all(_is_tracing_call(item.context_expr) for item in node.items):
+            return node.body
+        return node
+
+
 def test_queue_and_task_manager_are_the_jax_packages():
     """The copies run the JAX package's code: every function's syntax tree,
-    docstrings left out, is the original's."""
+    docstrings and the port's tracing statements left out, is the
+    original's."""
     def body(obj):
         fn = obj.__func__ if isinstance(obj, staticmethod) else obj
-        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        tree = _WithoutTracing().visit(ast.parse(textwrap.dedent(inspect.getsource(fn))))
         for node in ast.walk(tree):
             if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and node.body \
                     and isinstance(node.body[0], ast.Expr) \

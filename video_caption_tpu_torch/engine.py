@@ -70,6 +70,20 @@ wire a load took. Without the native loader every frame travels as RGB.
 ``self.memory.oom_guard()``, as in the JAX package: a device OOM logs a
 snapshot of the device's memory, then re-raises.
 
+While a torch profiler session runs, the engine records spans and
+counters (``tracing``): ``engine.dispatch`` and ``engine.collect`` around
+a batch's halves; under them ``engine.lookup`` (counters ``cache.hits``,
+``cache.misses``; ``cache.evictions`` where a put evicts), ``engine.load``
+(the misses' decode and upload), ``engine.frame_decode`` (one per host
+decode, attr ``frames``; counters ``frames.yuv420``,
+``frames.native_rgb``, ``frames.pil`` by the path the frames took),
+``engine.upload`` (counter ``h2d.bytes``), ``engine.assemble``,
+``engine.replay`` (a graph replay or the eager program; it holds
+``engine.capture`` on a shape's first use, counter ``graph.captures``),
+``engine.readback``, ``engine.collect_wait`` (the host waiting for the
+device) and ``engine.detokenize``; a cold single request's trunk and
+feats programs are ``engine.trunk`` and ``engine.feats``.
+
 The request program's core takes the weights, the video and the sampled
 groups' noise as inputs and holds no generator (``program.core``; the
 program draws the noise, ``request_noise``, then runs it): that core is
@@ -106,6 +120,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from video_caption_tpu_torch import tracing
 from video_caption_tpu_torch.aot import RequestGraph
 from video_caption_tpu_torch.config import InferenceConfig
 from video_caption_tpu_torch.datatypes import CaptionCandidates, InferenceResult
@@ -536,7 +551,9 @@ class InferenceEngine:
         Every graph has its own memory pool: a replay writes no other
         graph's outputs."""
         if key not in graphs:
-            graphs[key] = RequestGraph.capture(fn, example, generators)
+            with tracing.span("engine.capture"):
+                tracing.count("graph.captures")
+                graphs[key] = RequestGraph.capture(fn, example, generators)
             log.info("graph for %s: warm-up run %.2f s, capture %.2f s", key,
                      graphs[key].warmup_s, graphs[key].capture_s)
         return graphs[key]
@@ -558,21 +575,27 @@ class InferenceEngine:
         return self._graph_of(self._feats_graphs, tuple(feats.shape),
                               lambda x: _pack(program(x)), feats, (self.generator,))
 
-    def _dispatch(self, program, group_list, x: torch.Tensor, graph) -> Dispatched:
+    def _dispatch(self, program, group_list, x: torch.Tensor, graph,
+                  span: str = "engine.replay") -> Dispatched:
         """Run ``program`` on ``x`` (on CUDA with ``aot_request_program``, a
         replay of ``graph(x)``; else op by op) and return without waiting for
         the device: on CUDA the packed ids' copy to a pinned host buffer is
         enqueued on the same stream right after the program, and an event
         recorded behind it (the counterpart of the JAX engine's
         ``copy_to_host_async``). The next dispatch may replay the same
-        graph: stream order puts its writes after this copy."""
+        graph: stream order puts its writes after this copy. ``span`` names
+        the program's span."""
         if self.device.type != "cuda":
-            return Dispatched(_pack(program(x)), None, group_list, x.shape[0])
-        flat = graph(x).replay(x) if self._capture else _pack(program(x))
-        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-        host.copy_(flat, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
+            with tracing.span(span):
+                flat = _pack(program(x))
+            return Dispatched(flat, None, group_list, x.shape[0])
+        with tracing.span(span):
+            flat = graph(x).replay(x) if self._capture else _pack(program(x))
+        with tracing.span("engine.readback"):
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
         return Dispatched(host, done, group_list, x.shape[0])
 
     def _dispatch_videos(self, video: torch.Tensor) -> Dispatched:
@@ -594,22 +617,25 @@ class InferenceEngine:
         noises = self.request_noise(videos)
         if split:
             noises = tuple(None if n is None else rows_of(n, self.mesh, dim=1) for n in noises)
-        with torch.inference_mode():
+        with tracing.span("engine.replay"), torch.inference_mode():
             ids = program.core(self.params, video, noises)
             if split:
                 ids = tuple(coll.all_gather(x, self.mesh, coll.DATA_AXIS) for x in ids)
-        return Dispatched(_pack(ids).cpu(), None, group_list, videos)
+        with tracing.span("engine.readback"):
+            host = _pack(ids).cpu()
+        return Dispatched(host, None, group_list, videos)
 
     def _dispatch_feats(self, feats: torch.Tensor) -> Dispatched:
         """The feats request program on ``feats`` [1,T,E], dispatched (the
         overlapped cold path's second half)."""
         program, group_list = self._fused_feats_program()
-        return self._dispatch(program, group_list, feats, self.feats_graph)
+        return self._dispatch(program, group_list, feats, self.feats_graph, span="engine.feats")
 
     def _collect_ids(self, handle: Dispatched) -> List[np.ndarray]:
         """Wait for a dispatch; ids [V*R_g, N_g] of every decode group."""
         if handle.done is not None:
-            handle.done.synchronize()
+            with tracing.span("engine.collect_wait"):
+                handle.done.synchronize()
         flat = handle.ids.numpy()
         out, start = [], 0
         for dp, idxs, _, _ in handle.group_list:
@@ -620,9 +646,11 @@ class InferenceEngine:
 
     def _collect_videos(self, handle: Dispatched) -> List[List[str]]:
         """texts[v][preset index] of a dispatch."""
-        texts = [[""] * len(self._pairs()) for _ in range(handle.videos)]
-        for (_, idxs, _, _), ids in zip(handle.group_list, self._collect_ids(handle)):
-            self._texts_of(ids, idxs, texts)
+        collected = self._collect_ids(handle)
+        with tracing.span("engine.detokenize"):
+            texts = [[""] * len(self._pairs()) for _ in range(handle.videos)]
+            for (_, idxs, _, _), ids in zip(handle.group_list, collected):
+                self._texts_of(ids, idxs, texts)
         return texts
 
     def request_ids(self, video: torch.Tensor) -> List[np.ndarray]:
@@ -671,6 +699,7 @@ class InferenceEngine:
         videos past the byte budget (the newest always stays)."""
         if self._video_cache_bytes <= 0 or key is None:
             return
+        evictions = 0
         with self._video_cache_lock:
             old = self._video_cache.pop(key, None)
             if old is not None:
@@ -680,6 +709,27 @@ class InferenceEngine:
             while self._video_cache_total > self._video_cache_bytes and len(self._video_cache) > 1:
                 _, evicted = self._video_cache.popitem(last=False)
                 self._video_cache_total -= evicted.nbytes
+                evictions += 1
+        if evictions:
+            tracing.count("cache.evictions", evictions)
+
+    def _lookup(self, frames_dirs: Sequence[str]) -> List[tuple]:
+        """``_video_cache_get`` of each dir (threaded from 8 dirs on: the
+        lookups are stat-bound), counted as cache hits and misses."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        with tracing.span("engine.lookup", videos=len(frames_dirs)):
+            if len(frames_dirs) >= 8 and self._video_cache_bytes > 0:
+                with ThreadPoolExecutor(max_workers=8) as pool:
+                    lookups = list(pool.map(self._video_cache_get, frames_dirs))
+            else:
+                lookups = [self._video_cache_get(d) for d in frames_dirs]
+            if tracing.enabled():
+                hits = sum(hit is not None for _, hit in lookups)
+                tracing.count("cache.hits", hits)
+                tracing.count("cache.misses",
+                              sum(key is not None for key, _ in lookups) - hits)
+        return lookups
 
     def load_video(self, frames_dir: str) -> torch.Tensor:
         """frames_dir -> uint8 [1,T,3,S,S] on the engine's device (the chunked
@@ -704,7 +754,9 @@ class InferenceEngine:
         host = torch.from_numpy(arr)
         if self.device.type != "cuda":
             return host
-        return host.pin_memory().to(self.device, non_blocking=True)
+        with tracing.span("engine.upload", bytes=arr.nbytes):
+            tracing.count("h2d.bytes", arr.nbytes)
+            return host.pin_memory().to(self.device, non_blocking=True)
 
     def _load_chunk(self, part: Sequence[Path], chunk: int) -> Tuple[str, np.ndarray]:
         """One chunk of frames on the host: ``("yuv420", planes)`` [chunk,
@@ -713,34 +765,41 @@ class InferenceEngine:
         has the chunk's shape), else ``("rgb", pixels)`` [len(part),3,S,S]
         uint8 from the native loader or PIL."""
         size = self.config.image_size
-        if self.config.compile.yuv420_wire:
-            packed = native_loader.load_frames_native_yuv420(part, size)
-            if packed is not None:
-                if len(part) < chunk:
-                    packed = np.concatenate(
-                        [packed, np.repeat(packed[-1:], chunk - len(part), axis=0)])
-                return "yuv420", packed
-        pixels = native_loader.load_frames_native_u8(part, size)
-        if pixels is None:
-            pixels = np.stack([frame_loader.load_image_u8(p, size) for p in part])
-        return "rgb", pixels
+        with tracing.span("engine.frame_decode", frames=len(part)):
+            if self.config.compile.yuv420_wire:
+                packed = native_loader.load_frames_native_yuv420(part, size)
+                if packed is not None:
+                    tracing.count("frames.yuv420", len(part))
+                    if len(part) < chunk:
+                        packed = np.concatenate(
+                            [packed, np.repeat(packed[-1:], chunk - len(part), axis=0)])
+                    return "yuv420", packed
+            pixels = native_loader.load_frames_native_u8(part, size)
+            if pixels is None:
+                tracing.count("frames.pil", len(part))
+                pixels = np.stack([frame_loader.load_image_u8(p, size) for p in part])
+            else:
+                tracing.count("frames.native_rgb", len(part))
+            return "rgb", pixels
 
     def _load_video_to_device(self, frames_dir: str, chunk: int = 4) -> torch.Tensor:
         """The pipelined upload (JAX engine's ``_load_video_to_device``): a
         chunk of frames decodes while the previous one is on the wire, 4:2:0
         chunks finish their decode on the device, and the chunks join there.
         A video-cache hit is returned as it is; a miss fills the cache."""
-        key, cached = self._video_cache_get(frames_dir)
+        key, cached = self._lookup([frames_dir])[0]
         if cached is not None:
             return cached
-        picks = self._frame_picks(frames_dir)
-        parts = []
-        for start in range(0, len(picks), chunk):
-            part = picks[start:start + chunk]
-            kind, arr = self._load_chunk(part, chunk)
-            x = self._upload(arr)
-            parts.append(self._yuv_fn(x)[:len(part)] if kind == "yuv420" else x)
-        video = torch.cat(parts)[None]
+        with tracing.span("engine.load", videos=1):
+            picks = self._frame_picks(frames_dir)
+            parts = []
+            for start in range(0, len(picks), chunk):
+                part = picks[start:start + chunk]
+                kind, arr = self._load_chunk(part, chunk)
+                x = self._upload(arr)
+                parts.append(self._yuv_fn(x)[:len(part)] if kind == "yuv420" else x)
+        with tracing.span("engine.assemble"):
+            video = torch.cat(parts)[None]
         self._video_cache_put(key, video)
         return video
 
@@ -755,9 +814,10 @@ class InferenceEngine:
                 rgb = self._yuv_fn(chunk)[:n] if kind == "yuv420" else chunk
                 return rgb, cm.encode_frames(self.params, rgb, self.model_cfg)
 
-        if self.device.type != "cuda" or not self._capture:
-            return trunk(x)
-        return self._graph_of(self._trunk_graphs, (kind, x.shape[0], n), trunk, x).replay(x)
+        with tracing.span("engine.trunk", frames=n):
+            if self.device.type != "cuda" or not self._capture:
+                return trunk(x)
+            return self._graph_of(self._trunk_graphs, (kind, x.shape[0], n), trunk, x).replay(x)
 
     def _load_feats_overlapped(self, frames_dir: str,
                                chunk: int = _OVERLAP_CHUNK) -> Optional[torch.Tensor]:
@@ -770,24 +830,25 @@ class InferenceEngine:
         the video cache."""
         if self.model_cfg.vit.pool != "cls":
             return None
-        key, cached = self._video_cache_get(frames_dir)
+        key, cached = self._lookup([frames_dir])[0]
         if cached is not None:
             return None
-        picks = self._frame_picks(frames_dir)
-        t, size = len(picks), self.config.image_size
-        feats = torch.empty((1, t, self.model_cfg.vit.embed_dim), dtype=self.model_cfg.vit.dtype,
-                            device=self.device)
-        video = None if key is None else torch.empty((1, t, 3, size, size), dtype=torch.uint8,
-                                                     device=self.device)
-        for start in range(0, t, chunk):
-            part = picks[start:start + chunk]
-            kind, arr = self._load_chunk(part, chunk)
-            rgb, f = self._chunk_trunk(kind, len(part), self._upload(arr))
-            # copied out before the next replay of the same graph overwrites
-            # them: stream order keeps the copies right
-            feats[0, start:start + len(part)].copy_(f)
-            if video is not None:
-                video[0, start:start + len(part)].copy_(rgb)
+        with tracing.span("engine.load", videos=1):
+            picks = self._frame_picks(frames_dir)
+            t, size = len(picks), self.config.image_size
+            feats = torch.empty((1, t, self.model_cfg.vit.embed_dim),
+                                dtype=self.model_cfg.vit.dtype, device=self.device)
+            video = None if key is None else torch.empty(
+                (1, t, 3, size, size), dtype=torch.uint8, device=self.device)
+            for start in range(0, t, chunk):
+                part = picks[start:start + chunk]
+                kind, arr = self._load_chunk(part, chunk)
+                rgb, f = self._chunk_trunk(kind, len(part), self._upload(arr))
+                # copied out before the next replay of the same graph
+                # overwrites them: stream order keeps the copies right
+                feats[0, start:start + len(part)].copy_(f)
+                if video is not None:
+                    video[0, start:start + len(part)].copy_(rgb)
         self._video_cache_put(key, video)
         return feats
 
@@ -797,16 +858,12 @@ class InferenceEngine:
         up to 8 worker threads (identical dirs once; 4:2:0 planes under
         ``yuv420_wire`` where the loader takes the whole video) and uploaded
         as each finishes. The cache lookups (stat-bound) are threaded too
-        from 8 dirs on."""
+        from 8 dirs on (``_lookup``)."""
         from concurrent.futures import ThreadPoolExecutor
 
         if len(frames_dirs) == 1:
             return self._load_video_to_device(frames_dirs[0])
-        if len(frames_dirs) >= 8 and self._video_cache_bytes > 0:
-            with ThreadPoolExecutor(max_workers=8) as pool:
-                lookups = list(pool.map(self._video_cache_get, frames_dirs))
-        else:
-            lookups = [self._video_cache_get(d) for d in frames_dirs]
+        lookups = self._lookup(frames_dirs)
         slots = [hit for _, hit in lookups]
         misses: Dict[tuple, List[int]] = {}
         for i, (key, hit) in enumerate(lookups):
@@ -815,10 +872,17 @@ class InferenceEngine:
         if misses:
             c = self.config
             groups = list(misses.values())
-            with ThreadPoolExecutor(max_workers=min(len(groups), os.cpu_count() or 1, 8)) as pool:
-                loaded = pool.map(lambda d: frame_loader.load_video_packed(
-                    d, c.num_frames, c.image_size, allow_yuv420=c.compile.yuv420_wire),
-                    [frames_dirs[g[0]] for g in groups])
+
+            def decode(frames_dir: str, load) -> Tuple[str, np.ndarray]:
+                # on a pool thread: the load's span is its parent
+                with tracing.span("engine.frame_decode", parent=load, frames=c.num_frames):
+                    return frame_loader.load_video_packed(
+                        frames_dir, c.num_frames, c.image_size,
+                        allow_yuv420=c.compile.yuv420_wire)
+
+            with tracing.span("engine.load", videos=len(groups)) as load, ThreadPoolExecutor(
+                    max_workers=min(len(groups), os.cpu_count() or 1, 8)) as pool:
+                loaded = pool.map(lambda d: decode(d, load), [frames_dirs[g[0]] for g in groups])
                 for idxs, (kind, arr) in zip(groups, loaded):
                     video = self._upload(arr)
                     if kind == "yuv420":
@@ -826,7 +890,8 @@ class InferenceEngine:
                     self._video_cache_put(lookups[idxs[0]][0], video)
                     for i in idxs:
                         slots[i] = video
-        return torch.cat(slots)
+        with tracing.span("engine.assemble"):
+            return torch.cat(slots)
 
     # ---- public API ------------------------------------------------------
 
@@ -837,7 +902,8 @@ class InferenceEngine:
         if self._serves_on_program(video):
             texts = self._collect_videos(self._dispatch_videos(video))[0]
         else:
-            texts = self.generate_presets(self.compute_prefix(video), self._pairs())
+            with tracing.span("engine.replay"):
+                texts = self.generate_presets(self.compute_prefix(video), self._pairs())
         return _result(texts)
 
     def infer(self, frames_dir: str) -> InferenceResult:
@@ -860,7 +926,7 @@ class InferenceEngine:
         batch N. Under a mesh each data rank loads its own videos (the
         batch must divide over ``data``) and the handle holds the whole
         batch's ids."""
-        with self.memory.oom_guard():
+        with tracing.span("engine.dispatch", videos=len(frames_dirs)), self.memory.oom_guard():
             if self.mesh is not None:
                 mine = rows_of(np.asarray(list(frames_dirs), dtype=object), self.mesh)
                 return self._dispatch_mesh(self._load_videos(list(mine)), len(frames_dirs),
@@ -870,10 +936,11 @@ class InferenceEngine:
     def infer_batch_collect(self, handle: Dispatched) -> List[InferenceResult]:
         """Wait for a dispatched batch; one InferenceResult per video. Device
         errors (an OOM among them) surface here, hence the guard on this side
-        too."""
-        with self.memory.oom_guard():
-            collected = self._collect_videos(handle)
-        return [_result(texts) for texts in collected]
+        too. The best pick of each video runs in its span, ``engine.collect``."""
+        with tracing.span("engine.collect", videos=handle.videos):
+            with self.memory.oom_guard():
+                collected = self._collect_videos(handle)
+            return [_result(texts) for texts in collected]
 
     def infer_batch(self, frames_dirs: Sequence[str]) -> List[InferenceResult]:
         """Several videos in one program: one encoder pass over all of them

@@ -23,6 +23,8 @@ from typing import List, Sequence, Union
 import numpy as np
 from PIL import Image
 
+from video_caption_tpu_torch import tracing
+
 log = logging.getLogger(__name__)
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -109,7 +111,8 @@ def load_video_array_u8(
 
     The serving fast path: 1 byte/pixel over the host->device link (4x less
     wire traffic than the fp32 path); the device program applies the same
-    ImageNet normalization in fp32 before the encoder.
+    ImageNet normalization in fp32 before the encoder. The frames decoded
+    count as ``frames.native_rgb`` or ``frames.pil`` (``tracing``).
     """
     frames_dir = Path(frames_dir)
     files = list_frames(frames_dir)
@@ -122,7 +125,10 @@ def load_video_array_u8(
 
         imgs_arr = load_frames_native_u8(picks, image_size)
     if imgs_arr is None:
+        tracing.count("frames.pil", len(picks))
         imgs_arr = np.stack([load_image_u8(p, image_size) for p in picks])
+    else:
+        tracing.count("frames.native_rgb", len(picks))
     if len(picks) < num_frames:
         pad = np.repeat(imgs_arr[-1:], num_frames - len(picks), axis=0)
         imgs_arr = np.concatenate([imgs_arr, pad], axis=0)
@@ -144,7 +150,8 @@ def load_video_packed(
     host->device link) and the device finishes the decode bit-exactly
     (preprocessing/yuv420.py). Anything else falls back to the RGB uint8
     path for the WHOLE video (one format per video keeps the device
-    conversion a single fixed-shape program)."""
+    conversion a single fixed-shape program). Frames sent as planes count
+    as ``frames.yuv420`` (``tracing``)."""
     frames_dir = Path(frames_dir)
     files = list_frames(frames_dir)
     if not files:
@@ -155,6 +162,7 @@ def load_video_packed(
 
         packed = load_frames_native_yuv420(picks, image_size)
         if packed is not None:
+            tracing.count("frames.yuv420", len(picks))
             if len(picks) < num_frames:
                 pad = np.repeat(packed[-1:], num_frames - len(picks), axis=0)
                 packed = np.concatenate([packed, pad], axis=0)

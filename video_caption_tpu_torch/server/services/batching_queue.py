@@ -10,6 +10,15 @@ A background worker drains the queue: it waits up to ``max_wait_ms`` for
 co-arriving requests (bounded added latency), then dispatches up to
 ``max_batch`` of them as one device program. One queue per resident engine
 (engines are per-config, so batched requests always share a config).
+
+While a torch profiler session runs (``tracing``), the worker records
+``queue.wait`` (a request from submit to the worker taking it),
+``queue.idle`` (blocked on an empty queue), ``queue.coalesce`` (the first
+request taken to the batch closing; attrs ``videos`` and ``rows``, the
+bucket), ``queue.dispatch`` and ``queue.resolve``, and counts
+``queue.batches``, ``queue.videos``, ``queue.padding_rows`` and
+``queue.fallback_requests`` (requests retried one by one after a failed
+batch). Without the tracing statements the methods are the JAX package's.
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ import threading
 import time
 from concurrent.futures import Future
 from typing import List, Tuple
+
+from video_caption_tpu_torch import tracing
 
 log = logging.getLogger(__name__)
 
@@ -37,6 +48,7 @@ class BatchingQueue:
 
     def submit(self, frames_dir: str) -> Future:
         fut: Future = Future()
+        tracing.stamp(fut)
         self._queue.put((frames_dir, fut))
         return fut
 
@@ -52,24 +64,30 @@ class BatchingQueue:
     # ---- worker ------------------------------------------------------------
 
     def _collect(self) -> List[Tuple[str, Future]]:
-        item = self._queue.get()
+        with tracing.waiting("queue.idle"):
+            item = self._queue.get()
         if item[1] is None:
             return []
-        batch = [item]
-        # absolute deadline: total coalescing delay is bounded by max_wait_ms
-        # regardless of arrival pattern (not reset per arriving request)
-        deadline = time.monotonic() + self.max_wait_s
-        while len(batch) < self.max_batch:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            try:
-                nxt = self._queue.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if nxt[1] is None:
-                break
-            batch.append(nxt)
+        tracing.since("queue.wait", item[1])
+        with tracing.span("queue.coalesce"):
+            batch = [item]
+            # absolute deadline: total coalescing delay is bounded by
+            # max_wait_ms regardless of arrival pattern (not reset per
+            # arriving request)
+            deadline = time.monotonic() + self.max_wait_s
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt[1] is None:
+                    break
+                tracing.since("queue.wait", nxt[1])
+                batch.append(nxt)
+            tracing.annotate(videos=len(batch), rows=self._bucket_size(len(batch)))
         return batch
 
     @staticmethod
@@ -83,19 +101,21 @@ class BatchingQueue:
         return size
 
     def _resolve(self, batch, handle, dirs) -> None:
-        try:
-            results = self.engine.infer_batch_collect(handle)[: len(dirs)]
-            for (_, fut), res in zip(batch, results):
-                fut.set_result(res)
-        except Exception as exc:
-            # a bad frames_dir poisons the whole batch; fall back to
-            # per-request execution so one 404 doesn't fail neighbors
-            log.info("batched inference failed (%s); retrying per-request", exc)
-            for d, fut in batch:
-                try:
-                    fut.set_result(self.engine.infer(d))
-                except Exception as single_exc:
-                    fut.set_exception(single_exc)
+        with tracing.span("queue.resolve", requests=tracing.requests_of(f for _, f in batch)):
+            try:
+                results = self.engine.infer_batch_collect(handle)[: len(dirs)]
+                for (_, fut), res in zip(batch, results):
+                    fut.set_result(res)
+            except Exception as exc:
+                # a bad frames_dir poisons the whole batch; fall back to
+                # per-request execution so one 404 doesn't fail neighbors
+                log.info("batched inference failed (%s); retrying per-request", exc)
+                tracing.count("queue.fallback_requests", len(batch))
+                for d, fut in batch:
+                    try:
+                        fut.set_result(self.engine.infer(d))
+                    except Exception as single_exc:
+                        fut.set_exception(single_exc)
 
     def _run(self) -> None:
         # double-buffered under sustained load: dispatch batch N+1 (host JPEG
@@ -111,10 +131,16 @@ class BatchingQueue:
                 continue
             dirs = [d for d, _ in batch]
             padded = dirs + [dirs[-1]] * (self._bucket_size(len(dirs)) - len(dirs))
+            tracing.count("queue.batches")
+            tracing.count("queue.videos", len(dirs))
+            tracing.count("queue.padding_rows", len(padded) - len(dirs))
             try:
-                handle = self.engine.infer_batch_dispatch(padded)
+                with tracing.span("queue.dispatch",
+                                  requests=tracing.requests_of(f for _, f in batch)):
+                    handle = self.engine.infer_batch_dispatch(padded)
             except Exception as exc:
                 log.info("batch dispatch failed (%s); retrying per-request", exc)
+                tracing.count("queue.fallback_requests", len(batch))
                 if pending is not None:
                     self._resolve(*pending)
                     pending = None

@@ -7,6 +7,11 @@ neither machine it runs on. Status codes as the JAX package's:
 FileNotFoundError -> 400, a payload that does not fit the schema
 (ValueError, TypeError) -> 422, an unknown route -> 404, anything else ->
 500.
+
+While a torch profiler session runs (``tracing``), each POST to an infer
+route is a span, ``server.request``, on its handler thread from the body's
+read to the response written; it takes the request id that the queue's and
+the engine's spans of that request carry.
 """
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+
+from video_caption_tpu_torch import tracing
 
 log = logging.getLogger(__name__)
 
@@ -49,17 +56,18 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path not in ("/infer", "/api/v1/infer"):
             self._send(404, {"detail": "not found"})
             return
-        try:
-            length = int(self.headers.get("Content-Length", 0))
-            body = json.loads(self.rfile.read(length) or b"{}")
-            self._send(200, _infer_payload(body))
-        except FileNotFoundError as err:
-            self._send(400, {"detail": str(err)})
-        except (ValueError, TypeError) as err:
-            self._send(422, {"detail": str(err)})
-        except Exception as err:  # the server keeps serving; the client gets a 500
-            log.exception("inference failed")
-            self._send(500, {"detail": str(err)})
+        with tracing.request("server.request"):
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(length) or b"{}")
+                self._send(200, _infer_payload(body))
+            except FileNotFoundError as err:
+                self._send(400, {"detail": str(err)})
+            except (ValueError, TypeError) as err:
+                self._send(422, {"detail": str(err)})
+            except Exception as err:  # the server keeps serving; the client gets a 500
+                log.exception("inference failed")
+                self._send(500, {"detail": str(err)})
 
 
 class _Server(ThreadingHTTPServer):
