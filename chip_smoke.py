@@ -6,7 +6,7 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 
 1. environment: requires CUDA; prints the torch/CUDA versions and the card's
    name and power limit (nvidia-smi);
-2. build: compiles the seven hand-written kernels (ops/csrc/*.cu), one nvcc
+2. build: compiles the hand-written kernels (ops/csrc/*.cu), one nvcc
    per source, all started together; prints nvcc's register and spill
    report of every kernel and the counts of tensor-core instructions (HMMA,
    HGMMA), 16-byte global loads, generic loads (fused_pool's reads of a
@@ -16,8 +16,14 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    main path's and the trainers' shapes (error beside its tolerance, median
    device times of the kernel, the plain version and, where there is one, a
    single PyTorch call of the same function, beside the bound); then the input
-   gradients of the three differentiable kernels (kernel forward,
+   gradients of the five differentiable kernels (kernel forward,
    closed-form backward) against autograd through their plain versions;
+   norm_act (the bf16 LayerNorm and GELU) at the ViT's and the decode's
+   rows, held to 1 ulp and 99.9% equal outputs, its gradients at the mapper
+   step's GPT-2 rows to autograd's bit for bit. Phases 3-9, 11 and 12 run
+   bf16 alone on the card: there no LayerNorm or f32 GELU may take
+   norm_act's plain version (its ``plain_on_cuda`` must not move; phase
+   10's joint step and phase 13's accuracy gate run f32 on the card);
 4. engine: a full-width ViT-B/16 + GPT-2 (124M) engine with seeded random
    bf16 weights, 16 frames of 224x224 JPEGs per request, serving each
    request as the default configuration does: one replay of the request
@@ -51,10 +57,12 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    after phase 7 captures ``run`` into an ``aot.RequestGraph`` and replays
    it; its ids must equal the live replay's for every group
    (the sampled one included), its launches a replay those of the live
-   graph (12 / 1 / 24 / 276), and its device ms under torch.profiler are
-   printed beside the live graph's; then the eager request program's p50
-   with the kernel wrappers calling their CUDA implementations directly
-   and through their custom ops, in turns (direct, op, op, direct);
+   graph (12 / 1 / 24 / 276, and norm_act 925: the ViT's and 24 GPT-2
+   forwards' 25 LayerNorms and 12 GELUs each), and its device ms under
+   torch.profiler are printed beside the live graph's; then the eager
+   request program's p50 with the kernel wrappers calling their CUDA
+   implementations directly and through their custom ops, in turns
+   (direct, op, op, direct);
 5. decode configurations, each as in 4 (graph beside its eager twin): one
    engine with ``compile.use_pallas_decode_attention`` (and
    ``unified_fused_request`` off: the unified loop runs beam steps only and
@@ -107,7 +115,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    steps (each synchronised and timed), then a validation pass and a
    best-val checkpoint; the losses must be finite, the mapper must move and
    every other weight stay bit-equal (their rate is 0), and the step must
-   launch encoder_attention (frozen forward) and prefix_projector;
+   launch encoder_attention (frozen forward), prefix_projector and norm_act
+   (the ViT's, and GPT-2's under autograd);
 10. joint step: ``training/loop.run_training`` with the stage-1 alignment
    loss of ``cli/train_full.py --model vit`` and ``adamw(1e-4)``, the ViT
    with ``pool="gap"``, f32 and remat, 4 videos x 8 frames, 5 steps; the step
@@ -266,8 +275,11 @@ GROUPED = "unified_fused_request"          # off: the request decodes group by g
 UNIFIED_LAUNCHES = {"prefix_projector": 1, "lm_head": 24, "beam_attention": 276}
 GROUPED_LAUNCHES = {"prefix_projector": 1, "lm_head": 48, "beam_attention": 276}
 # launches of one replay of the default engine's request graph (warm: the
-# pixel program), the live one and the one loaded from its artifact
-ARTIFACT_LAUNCHES = {"encoder_attention": 12, **UNIFIED_LAUNCHES}
+# pixel program), the live one and the one loaded from its artifact;
+# norm_act: 2 LayerNorms and a GELU a layer and a final LayerNorm, in the
+# ViT and in each of the 24 GPT-2 forwards
+ARTIFACT_LAUNCHES = {"encoder_attention": 12, "norm_act": (1 + 24) * (3 * 12 + 1),
+                     **UNIFIED_LAUNCHES}
 ARTIFACT = "request.pt2"
 ARTIFACT_TIMEOUT_S = 600    # the fresh process: load, capture, replays
 EAGER_REQUESTS = 5          # eager requests a turn (direct, op, op, direct)
@@ -400,6 +412,7 @@ def main() -> int:
 
     lap("1-2 environment, build")
     # ---- 3. kernels against their plain versions
+    plain_before = _plain_norm_act_calls()
     checks = selfcheck.main_path_checks()
     torch.cuda.synchronize()
     report["kernel_checks"] = [c.as_dict() for c in checks]
@@ -594,11 +607,13 @@ def main() -> int:
              "captions": [CAPTIONS[(v + i) % len(CAPTIONS)] for i in range(len(CAPTIONS))]}
             for v, d in enumerate(dirs)]))
         report["mapper_trainer"] = _mapper_trainer_phase(Path(tmp), ann)
+        _require_no_plain_norm_act(plain_before, "phases 3-9 (bf16)")
         report["joint_step"] = _joint_step_phase(Path(tmp), ann)
         launches["fused_pool"] = report["joint_step"]["launches"]["fused_pool"]
 
         lap("9-10 trainers")
         # ---- 11. the HTTP server with its batch queue
+        plain_before = _plain_norm_act_calls()
         report["server"] = _server_phase(all_dirs, ckpt)
 
         lap("11 server")
@@ -607,9 +622,11 @@ def main() -> int:
         # was seen to miss the first port kernel of a replay)
         report["frame_path"] = _frame_path_phase(engine, all_dirs, Path(tmp), cpu_params,
                                                  cpu_cfg)
+        _require_no_plain_norm_act(plain_before, "phases 11-12 (bf16)")
 
         lap("12 frame path")
-        # ---- 13. the measurement stack
+        # ---- 13. the measurement stack (its accuracy gate runs the encoder in
+        # f32 on the card: those LayerNorms and GELUs take the plain version)
         report["bench"] = _bench_phase(engine, all_dirs, Path(tmp))
 
         lap("13 bench")
@@ -863,16 +880,19 @@ def _direct_kernels(direct: bool):
     itself instead of its custom op (the path of the wrappers before the
     ops were registered); restored on exit."""
     from video_caption_tpu_torch import aot
+    from video_caption_tpu_torch.ops import norm_act
 
-    saved = {m: m._op for m in aot.KERNEL_MODULES}
+    pairs = [(m, "_op", "_cuda") for m in aot.KERNEL_MODULES] + [(norm_act, "_gelu_op",
+                                                                   "_gelu_cuda")]
+    saved = [(m, op, getattr(m, op)) for m, op, _ in pairs]
     if direct:
-        for m in aot.KERNEL_MODULES:
-            m._op = m._cuda
+        for m, op, cuda in pairs:
+            setattr(m, op, getattr(m, cuda))
     try:
         yield
     finally:
-        for m, op in saved.items():
-            m._op = op
+        for m, op, fn in saved:
+            setattr(m, op, fn)
 
 
 def _replay_artifact(work: Path) -> int:
@@ -1152,6 +1172,23 @@ def _require_launches(launches, names, path):
     missing = [n for n in names if launches[n] == 0]
     if missing:
         raise AssertionError(f"{path} never launched {missing}: {launches}")
+
+
+def _plain_norm_act_calls() -> int:
+    from video_caption_tpu_torch.ops import norm_act
+
+    return norm_act.plain_on_cuda
+
+
+def _require_no_plain_norm_act(before: int, path: str) -> None:
+    """Fails ``path`` (bf16 on the card alone) if a LayerNorm or f32 GELU
+    in it took norm_act's plain version: every such call there has a bf16
+    tensor and must launch the kernel."""
+    n = _plain_norm_act_calls() - before
+    log(f"{path}: norm_act plain_on_cuda +{n}")
+    if n:
+        raise AssertionError(f"{path}: {n} LayerNorm/GELU calls on the card took the plain "
+                             "version")
 
 
 def _natural_group_ms(engine, frames_dir, runs=3):
@@ -2406,8 +2443,10 @@ def _f32(model_cfg):
 def _log_check(c, prefix="kernel") -> None:
     lib = "none" if c.library_ms is None else f"{c.library_ms:.4f} ms"
     atol = f"{c.atol:g}{' x max|plain|' if c.atol_of_max else ''}"
+    tol = (f"atol {atol} rtol {c.rtol:g}" if c.max_ulp is None else
+           f"{c.max_ulp:g} ulp, {c.equal_share:.4%} equal")
     log(f"{prefix} {c.name:18s} {c.shape:52s} max_abs_err {c.max_abs_err:.3e} "
-        f"(atol {atol} rtol {c.rtol:g}) {'ok' if c.ok else 'FAIL'} "
+        f"({tol}) {'ok' if c.ok else 'FAIL'} "
         f"kernel {c.ms:.4f} ms plain {c.plain_ms:.4f} ms library {lib} "
         f"bound {c.bound_ms:.4f} ms ({c.bound_by})")
 

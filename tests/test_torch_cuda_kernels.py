@@ -536,6 +536,101 @@ def test_fused_decode_wrappers_reject_what_the_kernels_do_not_take(cuda):
         dl.gpt2_decode_step(x, kvf, valid, 64, blocks, 12)   # offset outside the cache
 
 
+# ---- norm_act: the LayerNorm and the GELU in bf16 against their plain f32 versions
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+@pytest.mark.parametrize("rows,h", [(25216, 768), (48, 768), (8, 768), (1, 768), (37, 100)])
+def test_layer_norm_kernel(cuda, rows, h, eps, w_dtype):
+    """The ViT's rows of a batch of 8 videos, the decode's, one row and an
+    odd width: at most 1 bf16 ulp from the plain version, 99.9% bit-equal."""
+    _assert_ok(selfcheck.check_layer_norm(rows, cuda, h=h, eps=eps, w_dtype=w_dtype))
+
+
+@pytest.mark.parametrize("rows,h,offset", [
+    (48, 768, 1),        # views off 16 bytes: the element-wise path
+    (8, 3072, 0),        # wider than the vector path holds in registers
+    (48, 256, 0),        # the vector path with one chunk a lane of its three
+    (37, 104, 0)])       # the vector path with part of a lane's chunks
+def test_layer_norm_kernel_other_paths(cuda, rows, h, offset):
+    _assert_ok(selfcheck.check_layer_norm(rows, cuda, h=h, eps=1e-5, offset=offset))
+
+
+@pytest.mark.parametrize("approximate", ["tanh", "none"])
+@pytest.mark.parametrize("shape", [(25216, 3072), (48, 3072), (1001,)])
+def test_gelu_kernel(cuda, shape, approximate):
+    _assert_ok(selfcheck.check_gelu(shape, cuda, approximate))
+
+
+@pytest.mark.parametrize("shape,offset", [((48, 3072), 3), ((1001,), 5), ((9, 3072), 1)])
+def test_gelu_kernel_other_paths(cuda, shape, offset):
+    """Views off 16 bytes: each element alone."""
+    _assert_ok(selfcheck.check_gelu(shape, cuda, offset=offset))
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,h", [(144, 768), (37, 100)])
+def test_layer_norm_backward(cuda, rows, h, w_dtype):
+    """The mapper step's GPT-2 rows and an odd width: every gradient equals
+    autograd's of the plain version."""
+    _assert_ok(selfcheck.check_layer_norm_backward(rows, cuda, h=h, w_dtype=w_dtype))
+
+
+@pytest.mark.parametrize("approximate", ["tanh", "none"])
+@pytest.mark.parametrize("shape", [(144, 3072), (1001,)])
+def test_gelu_backward(cuda, shape, approximate):
+    _assert_ok(selfcheck.check_gelu_backward(shape, cuda, approximate))
+
+
+def test_norm_act_dispatch_on_cuda(cuda):
+    """bf16 on CUDA launches the kernel, under autograd too (the op's
+    registered backward gives the gradient); f32 takes the plain version
+    (``plain_on_cuda`` counts it) and returns its result bit for bit."""
+    from video_caption_tpu_torch.ops import norm_act as na
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((16, 768), generator=g, device=cuda)
+    w, b = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
+    counts = (na.launches, na.plain_on_cuda)
+    na.layer_norm(x.bfloat16(), w, b, 1e-5)
+    na.gelu(x.bfloat16(), "tanh")
+    assert (na.launches, na.plain_on_cuda) == (counts[0] + 2, counts[1])
+    assert torch.equal(na.layer_norm(x, w, b, 1e-5), na.layer_norm_ref(x, w, b, 1e-5))
+    assert torch.equal(na.gelu(x, "none"), na.gelu_ref(x, "none"))
+    xg = x.bfloat16().requires_grad_()
+    got = na.layer_norm(xg, w, b, 1e-5)
+    assert got.requires_grad and torch.equal(got, na.layer_norm(x.bfloat16(), w, b, 1e-5))
+    up = torch.randn(got.shape, generator=g, device=cuda).bfloat16()
+    want = torch.autograd.grad(na.layer_norm_ref(xg, w, b, 1e-5), xg, up)[0]
+    assert torch.equal(torch.autograd.grad(got, xg, up)[0], want)
+    assert na.gelu(xg, "tanh").requires_grad
+    assert (na.launches, na.plain_on_cuda) == (counts[0] + 5, counts[1] + 2)
+
+
+def test_norm_act_rejects_what_the_kernels_do_not_take(cuda):
+    from video_caption_tpu_torch.ops import norm_act as na
+
+    x = torch.zeros(4, 64, dtype=torch.bfloat16, device=cuda)
+    w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError):        # weight on the CPU, x on CUDA
+        na.layer_norm(x, w.cpu(), b, 1e-5)
+    with pytest.raises(ValueError):
+        torch.ops.vct.layer_norm(x, w, b.cpu(), 1e-5)
+    with pytest.raises(ValueError):
+        torch.ops.vct.gelu(x, "sigmoid")
+    with pytest.raises(TypeError):         # the kernels take bf16 x
+        torch.ops.vct.layer_norm(x.float(), w, b, 1e-5)
+    with pytest.raises(TypeError):
+        torch.ops.vct.gelu(x.double(), "tanh")
+    with pytest.raises(TypeError):         # weight and bias of two dtypes
+        torch.ops.vct.layer_norm(x, w, b.bfloat16(), 1e-5)
+    with pytest.raises(TypeError):         # weights neither bf16 nor f32
+        torch.ops.vct.layer_norm(x, w.half(), b.half(), 1e-5)
+    with pytest.raises(ValueError):        # weight of another width
+        na.layer_norm(x, w[:32], b[:32], 1e-5)
+
+
 # ---- each kernel of the request path captured alone into a CUDA graph
 
 
@@ -555,6 +650,21 @@ def _assert_replays_bit_equal(fn, example, want, generators=()):
         for g, w in zip(_tensors(got), _tensors(want), strict=True):
             assert torch.equal(g, w)
     return graph
+
+
+def test_norm_act_kernels_in_a_graph(cuda):
+    from video_caption_tpu_torch.ops import norm_act as na
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((48, 768), generator=g, device=cuda).bfloat16()
+    w = (1 + 0.1 * torch.randn((768,), generator=g, device=cuda)).bfloat16()
+    b = (0.1 * torch.randn((768,), generator=g, device=cuda)).bfloat16()
+
+    def fn(v):
+        return na.gelu(na.layer_norm(v, w, b, 1e-5), "tanh")
+
+    graph = _assert_replays_bit_equal(fn, x, fn(x))
+    assert graph.launches == {na: 2}
 
 
 def test_encoder_attention_kernel_in_a_graph(cuda):

@@ -15,9 +15,10 @@ from video_caption_tpu_torch.ops import decode_layer as dl
 from video_caption_tpu_torch.ops import encoder_attention as ea
 from video_caption_tpu_torch.ops import fused_pool as fpl
 from video_caption_tpu_torch.ops import lm_head as lmh
+from video_caption_tpu_torch.ops import norm_act as na
 from video_caption_tpu_torch.ops import prefix_projector as pp
 
-GRAD_OPS = ("encoder_attention", "prefix_project", "fused_pool")
+GRAD_OPS = ("encoder_attention", "prefix_project", "fused_pool", "layer_norm", "gelu")
 """The ops with a registered backward."""
 
 
@@ -129,6 +130,17 @@ def cases(device="cpu", seed=0) -> List[OpCase]:
     for mode in fpl.MODES:
         out.append(OpCase(f"fused_pool_{mode}", "fused_pool", (rand(6, 5, 64), 2, 3, mode),
                           lambda *a: [fpl.fused_pool_ref(*a)]))
+
+    # norm_act: bf16 x (its kernels take bf16), weights in bf16 or f32
+    x = rand(3, 5, 40).bfloat16()
+    for w_dtype in (torch.bfloat16, torch.float32):
+        out.append(OpCase(f"layer_norm_{str(w_dtype).split('.')[1]}_weight", "layer_norm",
+                          (x, (1 + rand(40, scale=0.1)).to(w_dtype),
+                           rand(40, scale=0.1).to(w_dtype), 1e-5),
+                          lambda *a: [na.layer_norm_ref(*a)]))
+    for approx in na.APPROXIMATIONS:
+        out.append(OpCase(f"gelu_{approx}", "gelu", (rand(7, 33, scale=2.0).bfloat16(), approx),
+                          lambda *a: [na.gelu_ref(*a)]))
     return out
 
 

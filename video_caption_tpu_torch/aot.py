@@ -44,13 +44,13 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from video_caption_tpu_torch.ops import (beam_attention, decode_attention, decode_layer,
-                                         encoder_attention, fused_pool, lm_head,
+                                         encoder_attention, fused_pool, lm_head, norm_act,
                                          prefix_projector)
 
 log = logging.getLogger(__name__)
 
 KERNEL_MODULES = (encoder_attention, prefix_projector, lm_head, beam_attention,
-                  decode_attention, decode_layer, fused_pool)
+                  decode_attention, decode_layer, fused_pool, norm_act)
 """The kernel wrappers whose ``launches`` counters a replay keeps up to date."""
 
 

@@ -71,6 +71,8 @@ LAUNCH_KERNELS = {
     "prefix_projector_kernel": "prefix_projector", "lm_head_row_stats_kernel": "lm_head",
     "beam_attention_kernel": "beam_attention", "decode_attention_kernel": "decode_attention",
     "decode_layer_kernel": "decode_layer", "fused_pool_kernel": "fused_pool",
+    "layer_norm_vec_kernel": "norm_act", "layer_norm_kernel": "norm_act",
+    "gelu_kernel": "norm_act",
 }
 """Kernels that one counted launch of a wrapper (``ops/<wrapper>.py``)
 runs exactly once: lm_head's launch also runs one window kernel for every

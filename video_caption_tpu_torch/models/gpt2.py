@@ -63,11 +63,12 @@ import torch
 import torch.nn.functional as F
 
 from video_caption_tpu_torch.models.quantize import block_weight, is_quantized
-from video_caption_tpu_torch.models.vit import layer_norm, linear, row_linear
+from video_caption_tpu_torch.models.vit import linear, row_linear
 from video_caption_tpu_torch.ops.beam_attention import beam_attention
 from video_caption_tpu_torch.ops.decode_attention import decode_attention
 from video_caption_tpu_torch.ops.decode_layer import gpt2_decode_step
 from video_caption_tpu_torch.ops.lm_head import WINDOW, lm_head_stats
+from video_caption_tpu_torch.ops.norm_act import gelu, layer_norm
 from video_caption_tpu_torch.parallel import collectives as coll
 
 Params = Dict[str, Any]
@@ -229,7 +230,7 @@ def _mlp(x: torch.Tensor, blk: Params, cfg: GPT2Config) -> torch.Tensor:
     a_in = coll.column_input(layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], cfg.ln_eps),
                              cfg.mesh)
     m = linear(a_in, block_weight(blk, "fc_w", x.dtype), blk["fc_b"])
-    m = F.gelu(m.float(), approximate="tanh").to(x.dtype)
+    m = gelu(m, "tanh")
     return row_linear(m, block_weight(blk, "out_w", x.dtype), blk["out_b"], cfg.mesh)
 
 

@@ -17,7 +17,9 @@ on the local heads, and proj and fc2 are row parallel (``row_linear``).
 
 Rounding points follow the JAX package: LayerNorm in f32 then cast back, the
 tanh-GELU in f32, attention probabilities cast to the compute dtype before
-AV, the encoder output cast to f32.
+AV, the encoder output cast to f32. The LayerNorms and the f32 GELU run
+through ops/norm_act.py, whose kernels do the f32 math in registers on bf16
+tensors.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from video_caption_tpu_torch.ops.encoder_attention import encoder_attention
+from video_caption_tpu_torch.ops.norm_act import gelu, layer_norm
 from video_caption_tpu_torch.parallel.collectives import (column_input, row_output,
                                                           tensor_parallel)
 from video_caption_tpu_torch.ops.fused_pool import fused_pool_temporal
@@ -119,13 +122,6 @@ def init_vit_params(gen: torch.Generator, cfg: ViTConfig, device) -> Params:
     }
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float) -> torch.Tensor:
-    """LayerNorm computed in f32, cast back to x's dtype."""
-    y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
-    return y.to(x.dtype)
-
-
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``x @ w + b`` for a weight stored [in, out], in x's dtype."""
     return F.linear(x, w.to(x.dtype).t(), b.to(x.dtype))
@@ -149,8 +145,7 @@ def _block(x: torch.Tensor, blk: Params, cfg: ViTConfig) -> torch.Tensor:
     y = linear(column_input(layer_norm(x, blk["ln2_scale"], blk["ln2_bias"], 1e-6), mesh),
                blk["fc1_w"], blk["fc1_b"])
     approx = "tanh" if cfg.gelu_approx else "none"
-    y = F.gelu(y.float(), approximate=approx).to(x.dtype) if cfg.gelu_f32 \
-        else F.gelu(y, approximate=approx)
+    y = gelu(y, approx) if cfg.gelu_f32 else F.gelu(y, approximate=approx)
     return x + row_linear(y, blk["fc2_w"], blk["fc2_b"], mesh)
 
 

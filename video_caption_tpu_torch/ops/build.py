@@ -4,7 +4,8 @@ On first use the CUDA sources are compiled with ``nvcc``, one process per
 source, all started together, and linked into one shared library with a
 plain C interface, in a build directory keyed by a hash of the sources and
 flags, and loaded with ``ctypes``. Every pointer and the stream pass as
-``c_void_p``, every integer as ``c_int``, a float as ``c_float``. Each C
+``c_void_p``, every integer as ``c_int`` (an element count that may pass
+2**31 as ``c_longlong``), a float as ``c_float``. Each C
 entry point returns the ``cudaError_t`` of its launch; :func:`launch` raises
 on anything but 0.
 
@@ -34,7 +35,7 @@ SRC_DIR = Path(__file__).resolve().with_name("csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argument types (ops/csrc/*.cu)
 SIGNATURES: Dict[str, List] = {
     "vct_encoder_attention": [_P, _P, _I, _I, _I, _I, _I, _P],
@@ -44,6 +45,8 @@ SIGNATURES: Dict[str, List] = {
     "vct_decode_attention": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P] + [_I] * 7 + [_P],
     "vct_decode_layer": [_P] * 22 + [_I] * 6 + [_F] + [_I] * 11 + [_P],
     "vct_fused_pool": [_P, _P] + [_I] * 10 + [_P],
+    "vct_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "vct_gelu": [_P, _P, _L, _I, _P],
 }
 
 # the __global__ functions of ops/csrc/*.cu (each in an anonymous namespace)
@@ -51,7 +54,7 @@ KERNELS = frozenset({
     "attention_bf16_kernel", "attention_f32_kernel", "prefix_projector_kernel",
     "lm_head_mma_kernel", "lm_head_window_f32_kernel", "lm_head_row_stats_kernel",
     "beam_attention_kernel", "decode_attention_kernel", "decode_layer_kernel",
-    "fused_pool_kernel",
+    "fused_pool_kernel", "layer_norm_vec_kernel", "layer_norm_kernel", "gelu_kernel",
 })
 
 _lock = threading.Lock()

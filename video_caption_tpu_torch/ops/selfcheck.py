@@ -1,7 +1,7 @@
-"""On-card checks of the seven CUDA kernels against their plain PyTorch
+"""On-card checks of the CUDA kernels against their plain PyTorch
 versions, at the shapes the caption main path (and its two fused-decode
 configurations) and the two trainers give them, and of the backward passes
-of the three differentiable kernels.
+of the five differentiable kernels.
 
 Each check builds seeded inputs on a CUDA device, runs the kernel wrapper and
 the plain version on the same tensors, and returns the largest absolute
@@ -52,6 +52,19 @@ Tolerances (elementwise ``|kernel - plain| <= atol + rtol * |plain|``):
   another order than the plain version (one sum over a video's rows against
   per-frame means): 1e-5 / 1e-5; in bf16 the output rounds to a bf16 step:
   1e-2 / 1e-2.
+- norm_act (layer_norm, gelu): held in units in the last place of the
+  output's dtype, not by atol/rtol (``ULP_TOLERANCE``). Both sides upcast
+  the same bf16 values, compute in f32 and round once; only the order of
+  the LayerNorm's f32 sums (two passes here, Welford's updates in PyTorch)
+  and the contraction of the GELU's f32 expression can differ, so an output
+  lies at most one step of its dtype from the plain version's, and only
+  where the f32 value sits next to a rounding boundary: at most 1 ulp, and
+  at least 99.9% of the elements equal. Where w * (x - mean) * rstd and b
+  cancel to an output near 0, the two f32 results differ by the rounding of
+  those O(1) terms (a few f32 steps, measured up to 6e-8 at outputs below
+  7.3e-6 on the H100), which is many bf16 steps of so small a value: the
+  ulp is taken at ``ULP_FLOOR`` (2^-16, whose bf16 step is 2^-23) for
+  outputs nearer 0 than that.
 
 Backward checks (``check_*_backward``) hold the input gradients of each
 differentiable op (the kernel's forward, its registered closed-form backward)
@@ -60,10 +73,13 @@ error relative to the largest gradient value: encoder_attention 1e-4 in f32
 (the same rounding points, f32 sums over 197 rows in another order) and
 2e-2 in bf16 (dV and dP are products in bf16); fused_pool and
 prefix_projector 1e-5 (f32; the same divisions, and f32 sums over at most
-3072 products).
+3072 products); norm_act's layer_norm and gelu 0: their backward runs
+PyTorch's own f32 backward of the plain version on the same upcast values,
+so every gradient is autograd's, bit for bit.
 """
 from __future__ import annotations
 
+import math
 import statistics
 from dataclasses import asdict, dataclass
 from typing import Callable, List, Optional, Sequence
@@ -77,6 +93,7 @@ from video_caption_tpu_torch.ops import decode_layer as dl
 from video_caption_tpu_torch.ops import encoder_attention as ea
 from video_caption_tpu_torch.ops import fused_pool as fpl
 from video_caption_tpu_torch.ops import lm_head as lmh
+from video_caption_tpu_torch.ops import norm_act as na
 from video_caption_tpu_torch.ops import prefix_projector as pp
 
 KERNELS = {
@@ -96,12 +113,16 @@ KERNELS = {
                      "video_caption_tpu/ops/pallas/decode_layer.py:153", dl),
     "fused_pool": ("cuda", "video_caption_tpu_torch/ops/csrc/fused_pool.cu",
                    "video_caption_tpu/ops/pallas/fused_pool.py:77", fpl),
+    "norm_act": ("cuda", "video_caption_tpu_torch/ops/csrc/norm_act.cu",
+                 "none: added to remove the f32 round trips around LayerNorm and GELU", na),
 }
-DEFAULT_PATH = ("encoder_attention", "prefix_projector", "lm_head", "beam_attention")
-"""The kernels of the default configuration; decode_attention and
+DEFAULT_PATH = ("encoder_attention", "prefix_projector", "lm_head", "beam_attention",
+                "norm_act")
+"""The kernels of the default configuration (bf16); decode_attention and
 decode_layer run only with their compile switches."""
-MAPPER_TRAINING_PATH = ("encoder_attention", "prefix_projector")
-"""The kernels of a mapper-trainer step (the encoder frozen, forward only)."""
+MAPPER_TRAINING_PATH = ("encoder_attention", "prefix_projector", "norm_act")
+"""The kernels of a mapper-trainer step (the encoder frozen, forward only;
+norm_act in the ViT and, forward and backward, in GPT-2)."""
 JOINT_TRAINING_PATH = ("encoder_attention", "fused_pool")
 """The kernels of a stage-1 joint step with ``pool="gap"`` (forward, and
 again in the remat recompute)."""
@@ -120,7 +141,14 @@ BACKWARD_TOLERANCES = {           # largest error / largest gradient value
     ("encoder_attention", torch.bfloat16): 2e-2,
     ("fused_pool", torch.float32): 1e-5,
     ("prefix_projector", torch.float32): 1e-5,
+    ("norm_act", torch.bfloat16): 0.0,
 }
+
+ULP_TOLERANCE = (1, 0.999)
+"""norm_act: (most units in the last place from the plain version, least
+share of elements equal to it)."""
+ULP_FLOOR = 2.0 ** -16
+"""norm_act: outputs nearer 0 than this are compared in its ulp."""
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "3xtf32": 495e12}
@@ -142,6 +170,11 @@ class CheckResult:
     flops: int
     bound_ms: float
     bound_by: str
+    max_ulp: Optional[float] = None
+    """norm_act: the most units in the last place an output lies from the
+    plain version's (the check holds it to ULP_TOLERANCE, not atol/rtol)."""
+    equal_share: Optional[float] = None
+    """norm_act: the share of the outputs equal to the plain version's."""
 
     def as_dict(self) -> dict:
         return asdict(self)
@@ -504,6 +537,84 @@ def check_fused_pool(batch: int, frames: int, mode: str = "gap", dtype=torch.flo
                    tol=tol)
 
 
+def ulp_distance(got: torch.Tensor, want: torch.Tensor, floor: float = ULP_FLOOR) -> tuple:
+    """(the largest |got - want| in units in the last place of want's dtype
+    at |want|, or at ``floor`` where |want| is smaller; the share of the
+    elements where got equals want)."""
+    g, w = got.double(), want.double()
+    scale = w.abs().clamp_min(max(floor, torch.finfo(want.dtype).tiny))
+    ulp = torch.finfo(want.dtype).eps * torch.exp2(torch.floor(torch.log2(scale)))
+    return float(((g - w).abs() / ulp).max()), float((got == want).double().mean())
+
+
+def _ulp_result(shape, got, want, kernel_fn, plain_fn, library_fn, work) -> CheckResult:
+    """A norm_act check: ``got`` against ``want`` within ULP_TOLERANCE."""
+    torch.cuda.synchronize()
+    max_ulp, equal = ulp_distance(got, want)
+    ok = (bool(torch.isfinite(got).all()) and max_ulp <= ULP_TOLERANCE[0]
+          and equal >= ULP_TOLERANCE[1])
+    bytes_, flops, dtype = work
+    bound_ms, bound_by = bound(bytes_, flops, dtype)
+    return CheckResult("norm_act", shape, float((got.float() - want.float()).abs().max()),
+                       0.0, 0.0, False, ok, median_ms(kernel_fn), median_ms(plain_fn),
+                       median_ms(library_fn), bytes_, flops, bound_ms, bound_by, max_ulp, equal)
+
+
+def _kind(dtype: torch.dtype) -> str:
+    return {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+
+
+def _layer_norm_inputs(rows, device, h, w_dtype, offset, seed):
+    """x [rows, h] bf16 (a residual stream's scale: mean 0.5, deviation 2),
+    ``offset`` elements into its buffer, and a weight and bias near the
+    trained ones' (1 + 0.1 N, 0.1 N) in ``w_dtype``."""
+    g = _gen(device, seed)
+    buf = (torch.randn((offset + rows * h,), generator=g, device=device) * 2 + 0.5).bfloat16()
+    x = buf[offset:].view(rows, h)
+    w = (1 + 0.1 * torch.randn((h,), generator=g, device=device)).to(w_dtype)
+    b = (0.1 * torch.randn((h,), generator=g, device=device)).to(w_dtype)
+    return x, w, b
+
+
+def check_layer_norm(rows: int, device="cuda", h: int = 768, eps: float = 1e-6,
+                     w_dtype=torch.bfloat16, offset: int = 0, seed: int = 7) -> CheckResult:
+    """The norm_act LayerNorm on bf16 x [rows, h], its weight and bias in
+    ``w_dtype``; ``offset`` elements into x's buffer, so the x and y views
+    sit off 16 bytes and take the element-wise path. Library: PyTorch's
+    LayerNorm on the bf16 tensors (its weight cast to bf16 outside the
+    timing)."""
+    x, w, b = _layer_norm_inputs(rows, device, h, w_dtype, offset, seed)
+    got = na.layer_norm(x, w, b, eps)
+    want = na.layer_norm_ref(x, w, b, eps)
+    wx, bx = w.bfloat16(), b.bfloat16()
+    # f32 work: a sum, a squared deviation, the scaled output (~8 per element)
+    work = (nbytes(x, w, b, got), 8 * rows * h, torch.float32)
+    return _ulp_result(f"layer_norm x[{rows},{h}] bf16{f' +{offset}' if offset else ''}"
+                       f", w {_kind(w_dtype)}, eps {eps:g}", got, want,
+                       lambda: na.layer_norm(x, w, b, eps),
+                       lambda: na.layer_norm_ref(x, w, b, eps),
+                       lambda: F.layer_norm(x, (h,), wx, bx, eps), work)
+
+
+def check_gelu(shape: Sequence[int], device="cuda", approximate: str = "tanh",
+               offset: int = 0, seed: int = 8) -> CheckResult:
+    """The norm_act GELU on bf16 x of ``shape`` (deviation 2: both tails and
+    the bend), ``offset`` elements into its buffer as in check_layer_norm.
+    Library: PyTorch's GELU on the bf16 tensor."""
+    g = _gen(device, seed)
+    n = math.prod(shape)
+    buf = (torch.randn((offset + n,), generator=g, device=device) * 2).bfloat16()
+    x = buf[offset:].view(*shape)
+    got = na.gelu(x, approximate)
+    want = na.gelu_ref(x, approximate)
+    work = (nbytes(x, got), 20 * n, torch.float32)     # ~20 f32 operations an element
+    dims = ",".join(map(str, shape))
+    return _ulp_result(f"gelu {approximate} x[{dims}] bf16"
+                       f"{f' +{offset}' if offset else ''}", got, want,
+                       lambda: na.gelu(x, approximate), lambda: na.gelu_ref(x, approximate),
+                       lambda: F.gelu(x, approximate=approximate), work)
+
+
 @dataclass
 class BackwardResult:
     """Input gradients of a differentiable op (kernel forward, registered
@@ -595,12 +706,55 @@ def check_prefix_projector_backward(rows: int, device="cuda", din: int = 256, do
                             addmm_fwd_bwd)
 
 
+def check_layer_norm_backward(rows: int, device="cuda", h: int = 768, eps: float = 1e-5,
+                              w_dtype=torch.bfloat16, seed: int = 10) -> BackwardResult:
+    """The gradients of x, the weight and the bias through ``vct::layer_norm``
+    (the kernel forward, ``layer_norm_bwd``) against autograd of the plain
+    version. Library: PyTorch's LayerNorm on the bf16 tensors."""
+    x, w, b = _layer_norm_inputs(rows, device, h, w_dtype, 0, seed)
+    grad_out = torch.randn((rows, h), generator=_gen(device, seed + 1), device=device).bfloat16()
+    inputs = tuple(t.clone().requires_grad_() for t in (x, w, b))
+    lx, lw, lb = (t.bfloat16().requires_grad_() for t in (x, w, b))
+
+    def library_fwd_bwd():
+        return torch.autograd.grad(F.layer_norm(lx, (h,), lw, lb, eps), (lx, lw, lb), grad_out)
+
+    return _backward_result("norm_act", f"layer_norm x[{rows},{h}] bf16, w {_kind(w_dtype)}",
+                            torch.bfloat16, inputs,
+                            lambda *t: na.layer_norm(*t, eps),
+                            lambda *t: na.layer_norm_ref(*t, eps), grad_out,
+                            lambda: na.layer_norm_bwd(x, w, b, eps, grad_out), library_fwd_bwd)
+
+
+def check_gelu_backward(shape: Sequence[int], device="cuda", approximate: str = "tanh",
+                        seed: int = 11) -> BackwardResult:
+    """The gradient of x through ``vct::gelu`` (the kernel forward,
+    ``gelu_bwd``) against autograd of the plain version. Library: PyTorch's
+    GELU on the bf16 tensor."""
+    g = _gen(device, seed)
+    x = (torch.randn(tuple(shape), generator=g, device=device) * 2).bfloat16()
+    grad_out = torch.randn(tuple(shape), generator=g, device=device).bfloat16()
+    lx = x.clone().requires_grad_()
+
+    def library_fwd_bwd():
+        return torch.autograd.grad(F.gelu(lx, approximate=approximate), lx, grad_out)
+
+    dims = ",".join(map(str, shape))
+    return _backward_result("norm_act", f"gelu {approximate} x[{dims}] bf16", torch.bfloat16,
+                            (x.clone().requires_grad_(),), lambda t: na.gelu(t, approximate),
+                            lambda t: na.gelu_ref(t, approximate), grad_out,
+                            lambda: na.gelu_bwd(x, grad_out, approximate), library_fwd_bwd)
+
+
 def backward_checks(device="cuda") -> List[BackwardResult]:
     """The backward passes at the trainers' shapes: the joint step's 4 videos
     x 8 frames (encoder_attention in f32 and bf16, fused_pool gap f32), the
     mapper trainer's batch of 4, and the quality loop's align step (f32,
     fused_pool's per-frame gap mean at T = 1) at 8 videos x 8 frames
-    (``chip_smoke.py``'s cut) and 96 x 8 (the loop's defaults)."""
+    (``chip_smoke.py``'s cut) and 96 x 8 (the loop's defaults); norm_act at
+    the mapper step's GPT-2 rows (4 captions x 36 positions: the prefix's 4
+    and 32 tokens), its LayerNorm with bf16 and with f32 weights, its GELU
+    tanh and erf."""
     return [check_encoder_attention_backward(32, torch.float32, device),
             check_encoder_attention_backward(32, torch.bfloat16, device),
             check_fused_pool_backward(4, 8, "gap", device),
@@ -608,7 +762,11 @@ def backward_checks(device="cuda") -> List[BackwardResult]:
             check_encoder_attention_backward(64, torch.float32, device),
             check_encoder_attention_backward(768, torch.float32, device),
             check_fused_pool_backward(64, 1, "gap", device),
-            check_fused_pool_backward(768, 1, "gap", device)]
+            check_fused_pool_backward(768, 1, "gap", device),
+            check_layer_norm_backward(144, device),
+            check_layer_norm_backward(144, device, w_dtype=torch.float32),
+            check_gelu_backward((144, 3072), device),
+            check_gelu_backward((144, 3072), device, approximate="none")]
 
 
 def main_path_checks(device="cuda") -> List[CheckResult]:
@@ -635,7 +793,8 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
     12 layers and one, in f32, over a 1024-row cache and at B=64. The
     quality loop's align step runs encoder_attention in f32 and fused_pool
     in f32 at one frame a video (the per-frame gap mean) over 64 frames
-    (``chip_smoke.py``'s cut) and 768 (the loop's defaults)."""
+    (``chip_smoke.py``'s cut) and 768 (the loop's defaults). norm_act's
+    first check is the single request's ViT LayerNorm (16 frames)."""
     out = []
     out += [check_encoder_attention(n, device) for n in (16, 128)]
     out += [check_encoder_attention(32, device, dtype=torch.float32),   # joint step
@@ -672,4 +831,16 @@ def main_path_checks(device="cuda") -> List[CheckResult]:
             check_fused_pool(2, 8, "cls", torch.bfloat16, device)]
     out += [check_encoder_attention(n, device, dtype=torch.float32) for n in (64, 768)]
     out += [check_fused_pool(n, 1, "gap", torch.float32, device) for n in (64, 768)]
+    # norm_act: the ViT's rows (a request's 16 frames x 197 tokens, a batch
+    # of 8 videos' 25,216; eps 1e-6) and the decode's (the unified request's
+    # 9, a batch's 48 and 8, a single row; GPT-2's eps 1e-5); f32 weights, an
+    # odd width and views off 16 bytes take the other paths
+    out += [check_layer_norm(r, device) for r in (3152, 25216)]
+    out += [check_layer_norm(r, device, eps=1e-5) for r in (9, 48, 8, 1)]
+    out += [check_layer_norm(25216, device, w_dtype=torch.float32),
+            check_layer_norm(37, device, h=100, eps=1e-5),
+            check_layer_norm(48, device, eps=1e-5, offset=1)]
+    out += [check_gelu((r, 3072), device) for r in (3152, 25216, 9, 48)]
+    out += [check_gelu((25216, 3072), device, approximate="none"),
+            check_gelu((1001,), device), check_gelu((48, 3072), device, offset=3)]
     return out
